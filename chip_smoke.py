@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Drive opty_tpu_torch's main path on one CUDA card and hold its
-kernels against their plain PyTorch versions.
+"""Drive opty_tpu_torch's paths on one CUDA card and hold its kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Phases, each reported on its own line(s):
+Phases, each reported on its own line(s) with its wall time:
 
 1. device: the card's name, the device count, its power limit;
 2. build: compile csrc/*.cu (one nvcc per source, in parallel) and
    print what ptxas reports (registers, shared memory, spills);
-3. kernels: each CUDA kernel against its plain version on the card at
-   the main path's shapes (B = 32, d = 5, b = 4, N = 501), float32 and
-   float64, timed with CUDA events;
+3. kernels: each CUDA kernel against its plain version on the card,
+   float32 and float64, timed with CUDA events: the PCR kernels at the
+   main path's shapes (B = 32, d = 5, b = 4, N = 501), the block
+   inverse and product at the scan path's per-node call (B = 8 and 32
+   lanes, d = 5), at a whole node axis (B = 16,032) and at the border's
+   d = 4, beside torch.linalg.inv_ex and torch.bmm as yardsticks;
 4. reference: a small solve (N = 101, float64 factorization) on the card
-   against the same solve on the CPU (the plain versions);
+   against the same solve on the CPU (the plain versions), once with
+   kkt_method='cr' (4) and once with 'scan' (4b);
 5. main path: the pendulum swing-up at N = 501 through
    ``swing_up_problem`` -> ``set_solver_options`` -> ``solve_queue``,
-   64 instances on 32 refilled lanes, launch counters reset just before
-   and read just after;
-6. profile: 8 iterations of a 32-lane batch, once counting host syncs
-   and once under torch.profiler (device busy time, kernel launches).
+   64 instances on 32 refilled lanes, kkt_method='cr', launch counters
+   reset just before and read just after;
+5b. scan path: the first 8 instances of the same queue in one
+   ``solve_batch`` with kkt_method='scan' and a float64 factorization,
+   counters reset just before and read just after;
+6. profile: a few iterations of each path, once counting host syncs and
+   once under torch.profiler (device busy time, kernel launches).
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -38,6 +45,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # main-path shapes of the KKT factorization (pendulum, bench queue)
 BATCH, D, B_BORDER, NODES = 32, 5, 4, 501
+# the scan path's lanes, and the block kernels' shapes (d, batch): the
+# per-node call over the scan path's lanes and over the main path's,
+# a whole node axis of the main path, the border's d = 4
+SCAN_LANES = 8
+BLOCK_SHAPES = ((D, SCAN_LANES), (D, BATCH), (D, BATCH * NODES),
+                (B_BORDER, BATCH))
 # peak rates (NVIDIA data sheets): device memory bytes/s and FP32 FLOP/s
 # outside the tensor cores, by card variant
 PEAKS = {'H100 PCIe': (2.0e12, 51e12), 'H100 NVL': (3.9e12, 60e12),
@@ -49,6 +62,10 @@ PEAKS = {'H100 PCIe': (2.0e12, 51e12), 'H100 NVL': (3.9e12, 60e12),
 # level 0 and 5e-2 on the final state for two float32 versions)
 TOL_REL = {'float64': 1e-9, 'float32': 5e-2}
 TOL_LEVEL0_F32 = 1e-5
+# the block kernels run their plain versions' operations in the same
+# order: 0 expected on finite inputs, these bounds absorb any order
+# difference
+TOL_BLOCK = {'float64': 1e-12, 'float32': 1e-5}
 
 
 def log(*args):
@@ -82,6 +99,33 @@ def timed(fn, reps, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps=50, sleep_cycles=10 ** 8):
+    """Device time per call of ``fn``.  The calls are queued behind a
+    sleep kernel (about 50 ms at the H100's clocks), so the events
+    around them time the device running them back to back and none of
+    the host's time to make them, which bounds a loop of microsecond
+    kernels; the function fails if the host did not stay ahead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    slept, start, stop = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    if host_ms >= slept.elapsed_time(start):
+        fail('device timing: the host took {:.2f} ms to queue the calls, '
+             'the sleep only {:.2f} ms'.format(
+                 host_ms, slept.elapsed_time(start)))
+    return start.elapsed_time(stop) / reps
+
+
 def random_system(dtype, seed=0):
     """Inputs made like tests/test_pallas_pcr.py's, at main-path shapes."""
     import torch
@@ -103,11 +147,16 @@ def rel_err(got, want):
     return err, err / scale
 
 
-def flop_counts(d, b, N, L, batch):
-    """FLOPs the two kernels do on these shapes (one per add, multiply,
+def inv_flops(d):
+    """FLOPs of one d x d pivoted inverse (one per add, multiply,
     divide; the pivot search and swaps counted as none)."""
-    inv = sum((d - 1 - k) * (1 + 4 * d) for k in range(d)) \
+    return sum((d - 1 - k) * (1 + 4 * d) for k in range(d)) \
         + d * d * (2 * d + 1)
+
+
+def flop_counts(d, b, N, L, batch):
+    """FLOPs the two PCR kernels do on these shapes."""
+    inv = inv_flops(d)
     mm = d * d * (2 * d - 1)
     level = inv + 6 * mm + 2 * d * d + 2 * d * b * (2 * d - 1) + 2 * d * b
     factor = batch * N * (L * level + inv + d * b * (2 * d - 1))
@@ -183,7 +232,69 @@ def check_kernels(pk, name):
     return rec
 
 
-def reference_solve():
+def bound(nbytes, ops, name, tag):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type (float64 outside the
+    tensor cores runs at half the FP32 rate)."""
+    _, (bw, fl) = peaks(name)
+    rate = fl if tag == 'float32' else fl / 2
+    t_bytes = nbytes / bw * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def check_block_kernels(bk, name):
+    """The block inverse and product against their plain versions, and
+    beside one library call each; returns per-kernel lists of records.
+    ``ms`` and ``library_ms`` are device times (``device_ms``): at these
+    sizes a call's host-side time exceeds the kernel's, and is
+    reported beside as ``call_ms`` (CUDA events around a host loop)."""
+    import torch
+    rec = {'block_inv': [], 'block_matmul': []}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        for d, nb in BLOCK_SHAPES:
+            rng = np.random.default_rng(nb + d)
+            to = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+            A = to(rng.standard_normal((nb, d, d)) + 2.0 * d * np.eye(d))
+            Bm = to(rng.standard_normal((nb, d, d)))
+            for kname, kernel, plain, library, args, n_io, ops in (
+                    ('block_inv', bk.block_inv, bk.block_inv_plain,
+                     lambda a: torch.linalg.inv_ex(a)[0], (A,), 2,
+                     inv_flops(d)),
+                    ('block_matmul', bk.block_matmul, bk.block_matmul_plain,
+                     torch.bmm, (A, Bm), 3, d * d * (2 * d - 1))):
+                got = kernel(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                aerr, err = rel_err(got, want)
+                if not torch.isfinite(got).all().item() \
+                        or err > TOL_BLOCK[tag]:
+                    fail('{} {} d={} B={}: rel err {:.3e} > {:.0e}'.format(
+                        kname, tag, d, nb, err, TOL_BLOCK[tag]))
+                ms = device_ms(lambda: kernel(*args))
+                call_ms = timed(lambda: kernel(*args), 200)
+                plain_ms = timed(lambda: plain(*args), 20, 2)
+                library_ms = device_ms(lambda: library(*args))
+                library_call_ms = timed(lambda: library(*args), 200)
+                nbytes = n_io * nb * d * d * A.element_size()
+                bms, by = bound(nbytes, nb * ops, name, tag)
+                rec[kname].append(dict(
+                    dtype=tag, d=d, batch=nb, max_abs_err=aerr,
+                    max_rel_err=err, ms=ms, call_ms=call_ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    library_call_ms=library_call_ms, bound_ms=bms,
+                    bound_by=by, bytes=nbytes, flops=nb * ops))
+                log('kernel {} {} d={} B={}: max_rel_err={:.3e} '
+                    'max_abs_err={:.3e} ms={:.5f} (device; {:.5f} a call '
+                    'in a host loop) plain_ms={:.4f} library_ms={:.5f} '
+                    '(device; {:.5f} a call) bound_us={:.3f} ({})'.format(
+                        kname, tag, d, nb, err, aerr, ms, call_ms, plain_ms,
+                        library_ms, library_call_ms, bms * 1e3, by))
+    return rec
+
+
+def reference_solve(kkt_method):
     """N = 101 swing-up, float64 factorization: the card (kernels)
     against the CPU (plain versions)."""
     import torch
@@ -192,24 +303,55 @@ def reference_solve():
     for dev in ('cuda', 'cpu'):
         prob = swing_up_problem(num_nodes=101, torque_bound=20.0,
                                 device=dev)
-        prob.set_solver_options(kkt_method='cr', factor_dtype=torch.float64,
+        prob.set_solver_options(kkt_method=kkt_method,
+                                factor_dtype=torch.float64,
                                 mu_strategy='monotone', use_soc=False)
         x0 = np.random.default_rng(29).normal(size=prob.num_free)
         out[dev] = prob.solve(x0)
     (xg, ig), (xc, ic) = out['cuda'], out['cpu']
     rel = abs(ig['obj_val'] - ic['obj_val']) / abs(ic['obj_val'])
     dx = float(np.max(np.abs(xg - xc)))
-    log('reference N=101: card status={} iters={} obj={:.10g}; cpu '
+    log('reference N=101 {}: card status={} iters={} obj={:.10g}; cpu '
         'status={} iters={} obj={:.10g}; obj rel diff={:.2e} max|dx|={:.2e}'
-        .format(ig['status'], ig['iterations'], ig['obj_val'],
+        .format(kkt_method, ig['status'], ig['iterations'], ig['obj_val'],
                 ic['status'], ic['iterations'], ic['obj_val'], rel, dx))
     if ig['status'] not in (0, 1) or ig['status'] != ic['status'] \
             or ig['iterations'] != ic['iterations'] or rel > 1e-8 \
             or dx > 1e-6:
-        fail('card and CPU solves disagree on the reference problem')
+        fail('card and CPU {} solves disagree on the reference problem'
+             .format(kkt_method))
 
 
-def main_path(pk):
+def launch_counts(pk, bk):
+    return {'pcr_factor_levels': pk.factor_launches,
+            'pcr_downsweep': pk.downsweep_launches,
+            'block_inv': bk.inv_launches,
+            'block_matmul': bk.matmul_launches}
+
+
+def reset_counts(pk, bk):
+    pk.reset_launch_counts()
+    bk.reset_launch_counts()
+
+
+def check_solutions(prob, x, ok, n):
+    """Finite solutions of the right shape that satisfy the torque
+    bound; returns the worst violation of the dynamics and the boundary
+    conditions over the converged lanes."""
+    if x.shape != (n, prob.num_free) or not np.all(np.isfinite(x[ok])):
+        fail('solutions have the wrong shape or are not finite')
+    N = prob.collocator.num_collocation_nodes
+    worst = 0.0
+    for lane in np.where(ok)[0]:
+        con = prob.constraints(x[lane])
+        worst = max(worst, float(np.max(np.abs(con))),
+                    abs(x[lane][N - 1] - np.pi), abs(x[lane][0]))
+        if np.max(np.abs(x[lane][2 * N:])) > 2.0 + 1e-8:
+            fail('torque bound violated on lane {}'.format(lane))
+    return worst
+
+
+def main_path(pk, bk):
     import torch
     from opty_tpu_torch.models import swing_up_problem
     from opty_tpu_torch.nlp.status import RESTORATION_NOT_PORTED
@@ -220,14 +362,13 @@ def main_path(pk):
     queue = np.random.default_rng(7).standard_normal((64, prob.num_free))
     chunks = []
     torch.cuda.synchronize()
-    pk.reset_launch_counts()
+    reset_counts(pk, bk)
     t0 = time.time()
     res = prob.solve_queue(queue, batch_size=32,
                            progress=lambda d, n, dt: chunks.append(dt))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {'pcr_factor_levels': pk.factor_launches,
-                'pcr_downsweep': pk.downsweep_launches}
+    launches = launch_counts(pk, bk)
 
     status = np.asarray(res.status)
     iters = np.asarray(res.iterations)
@@ -243,26 +384,13 @@ def main_path(pk):
     log('main path statuses: {}'.format(
         json.dumps({int(s): int(np.sum(status == s))
                     for s in np.unique(status)})))
-
-    # what comes out: finite solutions of the right shape that satisfy
-    # the dynamics, the boundary conditions and the torque bound
-    x = np.asarray(res.x)
-    if x.shape != (64, prob.num_free) or not np.all(np.isfinite(x[ok])):
-        fail('solutions have the wrong shape or are not finite')
-    N = NODES
-    worst = 0.0
-    for lane in np.where(ok)[0]:
-        con = prob.constraints(x[lane])
-        worst = max(worst, float(np.max(np.abs(con))),
-                    abs(x[lane][N - 1] - np.pi), abs(x[lane][0]))
-        if np.max(np.abs(x[lane][2 * N:])) > 2.0 + 1e-8:
-            fail('torque bound violated on lane {}'.format(lane))
-    log('main path: worst constraint / boundary violation over converged '
-        'lanes = {:.3e}'.format(worst))
+    worst = check_solutions(prob, np.asarray(res.x), ok, 64)
+    log('main path: worst constraint / boundary violation over '
+        'converged lanes = {:.3e}'.format(worst))
     if worst > 1e-6:
         fail('converged solutions violate their constraints')
-    for kname, n in launches.items():
-        if n == 0:
+    for kname in ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'):
+        if launches[kname] == 0:
             fail('{} was not launched on the main path'.format(kname))
     if ok.sum() < 60:
         fail('only {}/64 lanes converged'.format(int(ok.sum())))
@@ -271,27 +399,77 @@ def main_path(pk):
     return launches
 
 
-def iteration_profile(pk, iters=8):
-    """Where an iteration's time goes at the main path's size: one cold
-    batch of 32 lanes for ``iters`` iterations (the initialization
-    included), once counting host syncs (torch's sync debug mode warns
-    on each) and once under torch.profiler for the device's busy time."""
+def scan_path(pk, bk):
+    """The first SCAN_LANES instances of the main path's queue in one
+    batch through the scan factorization, float64 factor."""
+    import torch
+    from opty_tpu_torch.models import swing_up_problem
+    prob = swing_up_problem(num_nodes=NODES)
+    prob.set_solver_options(max_iter=200, kkt_method='scan', use_soc=False,
+                            mu_strategy='monotone',
+                            factor_dtype=torch.float64)
+    free = np.random.default_rng(7).standard_normal(
+        (64, prob.num_free))[:SCAN_LANES]
+    torch.cuda.synchronize()
+    reset_counts(pk, bk)
+    t0 = time.time()
+    res = prob.solve_batch(free)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(pk, bk)
+
+    status = res.status.cpu().numpy()
+    iters = res.iterations.cpu().numpy()
+    ok = (status == 0) | (status == 1)
+    steps = int(iters.max())          # the batch runs until its last lane
+    log('scan path: converged {}/{} (status 0/1), iterations mean={:.2f} '
+        'p50={} max={}, wall_s={:.2f} ({:.1f} ms per iteration), '
+        'launches={} (per iteration: block_inv {:.1f}, block_matmul {:.1f})'
+        .format(int(ok.sum()), SCAN_LANES, float(iters.mean()),
+                int(np.percentile(iters, 50)), steps, wall,
+                wall / steps * 1e3, json.dumps(launches),
+                launches['block_inv'] / steps,
+                launches['block_matmul'] / steps))
+    log('scan path statuses: {}'.format(
+        json.dumps({int(s): int(np.sum(status == s))
+                    for s in np.unique(status)})))
+    worst = check_solutions(prob, res.x.cpu().numpy(), ok, SCAN_LANES)
+    log('scan path: worst constraint / boundary violation over '
+        'converged lanes = {:.3e}'.format(worst))
+    if worst > 1e-6:
+        fail('converged scan solutions violate their constraints')
+    for kname in ('block_inv', 'block_matmul'):
+        if launches[kname] == 0:
+            fail('{} was not launched on the scan path'.format(kname))
+    if ok.sum() < SCAN_LANES - 1:
+        fail('only {}/{} scan lanes converged'.format(int(ok.sum()),
+                                                      SCAN_LANES))
+    return launches
+
+
+def iteration_profile(pk, bk, label, lanes, iters, kkt_method,
+                      factor_dtype):
+    """Where an iteration's time goes: one cold batch of ``lanes`` lanes
+    for ``iters`` iterations (the initialization included), once
+    counting host syncs (torch's sync debug mode warns on each) and once
+    under torch.profiler, tracing the device only, for its busy time."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
     from opty_tpu_torch.models import swing_up_problem
     prob = swing_up_problem(num_nodes=NODES)
-    prob.set_solver_options(max_iter=iters, kkt_method='cr', use_soc=False,
-                            mu_strategy='monotone', factor_dtype=torch.float32)
-    free = np.random.default_rng(7).standard_normal((BATCH, prob.num_free))
+    prob.set_solver_options(max_iter=iters, kkt_method=kkt_method,
+                            use_soc=False, mu_strategy='monotone',
+                            factor_dtype=factor_dtype)
+    free = np.random.default_rng(7).standard_normal((lanes, prob.num_free))
     prob.solve_batch(free)                       # warm caches and allocator
     torch.cuda.synchronize()
-    pk.reset_launch_counts()
+    reset_counts(pk, bk)
     t0 = time.time()
     prob.solve_batch(free)
     torch.cuda.synchronize()
     plain_wall = time.time() - t0
-    per_iter = (pk.factor_launches / iters, pk.downsweep_launches / iters)
+    per_iter = {k: n / iters for k, n in launch_counts(pk, bk).items()}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
@@ -303,29 +481,84 @@ def iteration_profile(pk, iters=8):
 
     torch.cuda.synchronize()
     t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prob.solve_batch(free)
         torch.cuda.synchronize()
     wall = time.time() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us <= 0:
+        fail('profile {}: the profiler recorded no device time'.format(label))
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log('profile: {} lanes x {} iterations (init included): wall_s={:.3f} '
+    log('profile {}: {} lanes x {} iterations (init included): wall_s={:.3f} '
         '(plain run) {:.3f} (under the profiler) device_busy_s={:.4f} '
         'idle_share={:.4f} (of the profiled wall) device_kernels={} '
         'host_syncs={} (per iteration: {:.1f} kernels, {:.1f} syncs, '
         '{:.1f} ms wall)'.format(
-            BATCH, iters, plain_wall, wall, busy_us / 1e6,
+            label, lanes, iters, plain_wall, wall, busy_us / 1e6,
             1.0 - busy_us / 1e6 / wall, launches, syncs, launches / iters,
             syncs / iters, plain_wall / iters * 1e3))
-    log('profile: counted launches per iteration: pcr_factor_levels '
-        '{:.2f}, pcr_downsweep {:.2f}'.format(*per_iter))
+    log('profile {}: counted launches per iteration: {}'.format(
+        label, json.dumps(per_iter)))
     for e in top:
-        log('profile top: {:.3f} ms in {} launches of {}'.format(
-            e.self_device_time_total / 1e3, e.count, e.key[:90]))
+        log('profile {} top: {:.3f} ms in {} launches of {}'.format(
+            label, e.self_device_time_total / 1e3, e.count, e.key[:90]))
+
+
+def phase(title, fn, *args):
+    t0 = time.time()
+    out = fn(*args)
+    log('phase {}: {:.1f} s'.format(title, time.time() - t0))
+    return out
+
+
+KERNELS = (
+    ('pcr_factor_levels', 'opty_tpu_torch/csrc/pcr.cu',
+     'opty_tpu/ops/pallas_pcr.py:216'),
+    ('pcr_downsweep', 'opty_tpu_torch/csrc/pcr.cu',
+     'opty_tpu/ops/pallas_pcr.py:250'),
+    ('block_inv', 'opty_tpu_torch/csrc/blocks.cu',
+     'opty_tpu/ops/pallas_blocks.py:42'),
+    ('block_matmul', 'opty_tpu_torch/csrc/blocks.cu',
+     'opty_tpu/ops/pallas_blocks.py:84'),
+)
+
+
+def kernel_records(rec, blocks, main_launches, scan_launches):
+    """The JSON entries: the PCR kernels at the main path's shapes
+    (float32, as the path runs them), the block kernels at the scan
+    path's per-node call (float64, d = 5, SCAN_LANES matrices) with
+    every measured shape beside."""
+    out = []
+    for kname, source, replaces in KERNELS:
+        entry = dict(name=kname, route='cuda', source=source,
+                     replaces=replaces)
+        if kname in rec:
+            f32, f64 = rec[kname]['float32'], rec[kname]['float64']
+            entry.update(
+                launches=main_launches[kname],
+                max_abs_err=f32['max_abs_err'],
+                max_rel_err=f32['max_rel_err'], ms=f32['ms'],
+                plain_ms=f32['plain_ms'], bound_ms=f32['bound_ms'],
+                bound_by=f32['bound_by'], library_ms=None,
+                f64_max_abs_err=f64['max_abs_err'], f64_ms=f64['ms'],
+                f64_plain_ms=f64['plain_ms'], f64_bound_ms=f64['bound_ms'])
+        else:
+            shapes = blocks[kname]
+            main = next(r for r in shapes if r['dtype'] == 'float64'
+                        and r['d'] == D and r['batch'] == SCAN_LANES)
+            entry.update(
+                launches=scan_launches[kname],
+                launches_main_path=main_launches[kname],
+                max_abs_err=max(r['max_abs_err'] for r in shapes),
+                max_rel_err=max(r['max_rel_err'] for r in shapes),
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=main['library_ms'], shapes=shapes)
+        out.append(entry)
+    return out
 
 
 def main():
@@ -333,6 +566,7 @@ def main():
     if not torch.cuda.is_available():
         fail('no CUDA device: chip_smoke.py runs on the card only')
     sys.path.insert(0, HERE)
+    from opty_tpu_torch.ops import block_kernels as bk
     from opty_tpu_torch.ops import pcr_kernels as pk
 
     # 1. device
@@ -357,32 +591,25 @@ def main():
                 log('ptxas {}: {}'.format(src, line.strip()))
 
     # 3. kernels against plain versions
-    rec = check_kernels(pk, name)
+    rec = phase('3 pcr kernels', check_kernels, pk, name)
+    blocks = phase('3 block kernels', check_block_kernels, bk, name)
 
-    # 4. small reference solve, card against CPU
-    reference_solve()
+    # 4. small reference solves, card against CPU
+    phase('4 reference cr', reference_solve, 'cr')
+    phase('4b reference scan', reference_solve, 'scan')
 
-    # 5. the main path
-    launches = main_path(pk)
+    # 5. the main path, 5b. the scan path
+    main_launches = phase('5 main path', main_path, pk, bk)
+    scan_launches = phase('5b scan path', scan_path, pk, bk)
 
     # 6. where an iteration's time goes (after the counters were read)
-    iteration_profile(pk)
+    phase('6 profile cr', iteration_profile, pk, bk, 'cr', BATCH, 8, 'cr',
+          torch.float32)
+    phase('6 profile scan', iteration_profile, pk, bk, 'scan', SCAN_LANES,
+          4, 'scan', torch.float64)
 
-    kernels = []
-    for kname, replaces in (
-            ('pcr_factor_levels', 'opty_tpu/ops/pallas_pcr.py:216'),
-            ('pcr_downsweep', 'opty_tpu/ops/pallas_pcr.py:250')):
-        f32, f64 = rec[kname]['float32'], rec[kname]['float64']
-        kernels.append(dict(
-            name=kname, route='cuda', source='opty_tpu_torch/csrc/pcr.cu',
-            replaces=replaces, launches=launches[kname],
-            max_abs_err=f32['max_abs_err'], max_rel_err=f32['max_rel_err'],
-            ms=f32['ms'], plain_ms=f32['plain_ms'],
-            bound_ms=f32['bound_ms'], bound_us=f32['bound_ms'] * 1e3,
-            bound_by=f32['bound_by'], library_ms=None,
-            f64_max_abs_err=f64['max_abs_err'], f64_ms=f64['ms'],
-            f64_plain_ms=f64['plain_ms'], f64_bound_ms=f64['bound_ms']))
-    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'kernels': kernel_records(
+        rec, blocks, main_launches, scan_launches)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': count}}), flush=True)

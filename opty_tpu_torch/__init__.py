@@ -3,9 +3,11 @@
 Direct-collocation trajectory optimization on an NVIDIA GPU: SymPy
 dynamics lowered to batched torch residual, Jacobian and Hessian
 kernels, and the filter interior-point solver over the structured KKT
-system, whose cyclic-reduction factor and downsweep run in
-hand-written CUDA kernels (ops/pcr_kernels.py, csrc/pcr.cu).  Entry
-points run on the card unless the caller passes ``device='cpu'``.
+system.  Its factorizations run in hand-written CUDA kernels: the
+cyclic-reduction factor and downsweep (ops/pcr_kernels.py,
+csrc/pcr.cu) and the scan path's block inverse and product
+(ops/block_kernels.py, csrc/blocks.cu).  Entry points run on the card
+unless the caller passes ``device='cpu'``.
 Imports no JAX and nothing of opty_tpu.
 """
 

@@ -5,16 +5,17 @@ the solver core works in float64 on every device.  The KKT
 factorization runs in ``factor_dtype`` and recovers float64 accuracy
 through iterative refinement against the float64 operator.
 
-Defaults are chosen by the device type, never by probing a backend:
+Defaults are chosen by the device type, never by probing a backend, and
+follow the JAX package's (opty_tpu/config.py):
 
+* ``cpu``: ``kkt_method='scan'`` (the sequential block elimination of
+  nlp/kkt.py, lowest flops) with a float64 factorization and one
+  refinement round — the float64 reference path;
 * ``cuda``: ``kkt_method='cr'`` (parallel cyclic reduction through the
   hand-written CUDA kernels of ops/pcr_kernels.py) with a float32
-  factorization and 6 rounds of float64 refinement;
-* ``cpu``: ``kkt_method='cr'`` with a float64 factorization (one
-  refinement round).  The JAX package's CPU default is the sequential
-  ``'scan'`` factorization, which this package does not provide; tests
-  that compare the two set ``kkt_method`` and ``factor_dtype``
-  explicitly on both sides.
+  factorization and 6 rounds of float64 refinement.  The scan path runs
+  on the card too (its block inverses and products through
+  ops/block_kernels.py), in float64 natively.
 
 Entry points take ``device=None``, which means ``cuda``.  Without a
 card they raise instead of falling back to the CPU; callers that want
@@ -60,6 +61,5 @@ def default_factor_dtype(device):
 
 
 def default_kkt_method(device):
-    """'cr' on every device (the only structured method ported)."""
-    del device
-    return 'cr'
+    """'cr' on the card (log-depth), 'scan' on the CPU."""
+    return 'cr' if torch.device(device).type == 'cuda' else 'scan'

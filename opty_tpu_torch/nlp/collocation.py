@@ -1,7 +1,8 @@
 """Wires a ConstraintCollocator into the interior-point solver.
 
-The counterpart of opty_tpu/nlp/collocation.py for ``kkt_method='cr'``.
-Builds the ``IPMFunctions`` over a leading lane axis B: the
+The counterpart of opty_tpu/nlp/collocation.py for ``kkt_method``
+``'scan'`` and ``'cr'``.  Builds the ``IPMFunctions`` over a leading
+lane axis B: the
 transcription (one free vector at a time) is vmapped over the lanes
 with ``torch.func.vmap``; the KKT assembly, factorization and refined
 solve (nlp/kkt.py) take the lane axis directly.  The Lagrangian Hessian
@@ -24,7 +25,8 @@ from torch.func import vmap
 from ..config import default_factor_dtype, default_kkt_method
 from ..transcribe.hessian import make_structured_scalar_hessian
 from .ipm_types import IPMFunctions
-from .kkt import (KKTBlocks, factor_kkt_cr, matvec_assembled_nl,
+from .kkt import (KKTBlocks, check_method, factor_kkt, factor_kkt_cr,
+                  kkt_matvec, matvec_assembled_nl, solve_factored,
                   solve_factored_cr_nl)
 
 __all__ = ['make_collocation_nlp_functions', 'compute_scaling']
@@ -79,7 +81,8 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         scaling, one per lane.  When given, the returned functions
         define the *scaled* NLP; the second return value carries
         (sf (B,), dsc_full (B, m)) for unscaling results.
-    kkt_method : 'cr' (the only method ported).
+    kkt_method : 'scan' (sequential block elimination, the CPU default)
+        or 'cr' (parallel cyclic reduction, the card's default).
     """
     n = col.num_states
     q = col.num_unknown_input_trajectories
@@ -93,10 +96,7 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
     device = col._device
     if kkt_method is None:
         kkt_method = default_kkt_method(device)
-    if kkt_method != 'cr':
-        raise NotImplementedError(
-            "kkt_method='{}' is not ported to opty_tpu_torch yet (ROADMAP "
-            "queue 1); use 'cr'.".format(kkt_method))
+    check_method(kkt_method)
     if factor_dtype is None:
         factor_dtype = default_factor_dtype(device)
     if refine_steps is None:
@@ -254,42 +254,55 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         Hd = Hd + torch.diag_embed(sz)
         Hww = Hww + torch.diag_embed(sw)
         blocks = _blocks_with(Hd, Ho, Hw, Hww, prep, ds)
-        return blocks, factor_kkt_cr(blocks, factor_dtype=factor_dtype)
+        factor = factor_kkt_cr if kkt_method == 'cr' else factor_kkt
+        return blocks, factor(blocks, factor_dtype=factor_dtype)
 
-    def _resid(Ku, Kb, r_nl, r_border):
-        num = torch.sqrt(torch.sum((Ku - r_nl) ** 2, dim=(-2, -1))
+    def _resid(Ku, Kb, r_nodes, r_border):
+        num = torch.sqrt(torch.sum((Ku - r_nodes) ** 2, dim=(-2, -1))
                          + torch.sum((Kb - r_border) ** 2, dim=-1))
-        den = torch.sqrt(torch.sum(r_nl ** 2, dim=(-2, -1))
+        den = torch.sqrt(torch.sum(r_nodes ** 2, dim=(-2, -1))
                          + torch.sum(r_border ** 2, dim=-1))
         return num / torch.clamp(den, min=1e-300)
 
-    def _apply_refined_cr(cf, r_nodes, r_border, n_refine):
-        r_nl = r_nodes.transpose(-1, -2)
-        u, beta = solve_factored_cr_nl(cf, r_nl, r_border)
+    def _apply_with_refinement(blocks_fac, r_nodes, r_border, n_refine):
+        """Solve, refine ``n_refine`` rounds against the float64
+        operator and measure the relative KKT residual.  The residual
+        is shared with the last refinement round when there are >= 2
+        rounds (after a single round it would be the raw factor
+        residual); otherwise it takes a dedicated operator pass."""
+        blocks, fac = blocks_fac
+        if kkt_method == 'cr':
+            # node-last end to end; transposed back only at _join_sol
+            r_nodes = r_nodes.transpose(-1, -2)
+            solve = lambda rn, rb: solve_factored_cr_nl(fac, rn, rb)
+            apply = lambda u, beta: matvec_assembled_nl(fac, u, beta)
+        else:
+            solve = lambda rn, rb: solve_factored(fac, rn, rb)
+            apply = lambda u, beta: kkt_matvec(blocks, u, beta)
+        u, beta = solve(r_nodes, r_border)
         u = u.to(dtype)
         beta = beta.to(dtype)
         resid = None
         for i in range(n_refine):
-            Ku, Kb = matvec_assembled_nl(cf, u, beta)
+            Ku, Kb = apply(u, beta)
             if n_refine >= 2 and i == n_refine - 1:
-                # residual measured at (and shared with) the LAST
-                # refinement round; only with >= 2 rounds (after one
-                # round it is the raw factor residual)
-                resid = _resid(Ku, Kb, r_nl, r_border)
-            du, dbeta = solve_factored_cr_nl(cf, r_nl - Ku, r_border - Kb)
+                resid = _resid(Ku, Kb, r_nodes, r_border)
+            du, dbeta = solve(r_nodes - Ku, r_border - Kb)
             u = u + du.to(dtype)
             beta = beta + dbeta.to(dtype)
-        out = _join_sol(u.transpose(-1, -2), beta)
         if resid is None:
-            Ku, Kb = matvec_assembled_nl(cf, u, beta)
-            resid = _resid(Ku, Kb, r_nl, r_border)
-        return out[0], out[1], resid
+            Ku, Kb = apply(u, beta)
+            resid = _resid(Ku, Kb, r_nodes, r_border)
+        if kkt_method == 'cr':
+            u = u.transpose(-1, -2)
+        dx, dy = _join_sol(u, beta)
+        return dx, dy, resid
 
     def kkt_apply(blocks_fac, rx, rc):
         """Solve a factored system; returns (dx, dy, rel_resid (B,))."""
-        _, cf = blocks_fac
         r_nodes, r_border = _split_rhs(rx, rc)
-        return _apply_refined_cr(cf, r_nodes, r_border, refine_steps)
+        return _apply_with_refinement(blocks_fac, r_nodes, r_border,
+                                      refine_steps)
 
     def kkt_solve(prep, sigma_x, ds, rx, rc):
         return kkt_apply(kkt_factor(prep, sigma_x, ds), rx, rc)

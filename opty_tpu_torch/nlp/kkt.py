@@ -1,28 +1,56 @@
-"""Structured KKT solves for collocation NLPs (the ``'cr'`` method).
+"""Structured KKT solves for collocation NLPs.
 
 The counterpart of opty_tpu/nlp/kkt.py.  In node-major order the
 primal-dual KKT matrix of a collocation NLP is symmetric
 block-tridiagonal with a small dense border (unknown parameters, free
-``h`` and the instance-constraint rows).  It is assembled node-last,
-Jacobi-equilibrated, cast to the factorization dtype and factored by
-parallel cyclic reduction (ops/tridiag.py); the float64 operator rides
-along for iterative refinement.
+``h`` and the instance-constraint rows).  Two factorizations of it:
 
+* ``'scan'`` (``factor_kkt``/``solve_factored``): the sequential block
+  elimination, a Schur-complement recursion over the nodes with the
+  border Schur complement accumulated along, then a small dense border
+  solve and block back substitution.  The JAX package's ``lax.scan``
+  recursions are Python loops over the N nodes here, node axis first,
+  so each step works on one contiguous ``(lanes, d, d)`` slice: on the
+  card each pivot inverse is one ``block_inv`` launch and each square
+  block product one ``block_matmul`` launch (ops/block_kernels.py); the
+  rectangular products stay ``torch.matmul``.  Refinement applies the
+  operator from the blocks (``kkt_matvec``).
+* ``'cr'`` (``factor_kkt_cr``): assembled node-last, factored by
+  parallel cyclic reduction (ops/tridiag.py); the float64 operator rides
+  along for iterative refinement.
+
+Both equilibrate (Jacobi scaling) and cast to the factorization dtype.
 Every function takes a leading lane axis (any leading axes broadcast):
 the solver carries B lanes explicitly instead of vmapping.  The
-sequential ``'scan'`` factorization and the distributed ``'spike'``
-method are not ported yet (ROADMAP queue 1).
+distributed ``'spike'`` method is not ported yet (ROADMAP queue 1 item
+15).
 """
 
 from typing import Any, NamedTuple
 
 import torch
 
+from ..ops.block_kernels import block_matmul
 from ..ops.lanes import matvec_nl, to_lanes, transpose_nl
+from ..ops.smallblock import block_inv
 
-__all__ = ['KKTBlocks', 'CRFactorization', 'factor_kkt_cr',
-           'matvec_assembled_nl', 'solve_factored_cr_nl',
+__all__ = ['KKTBlocks', 'KKTFactorization', 'CRFactorization', 'METHODS',
+           'check_method', 'factor_kkt', 'solve_factored', 'kkt_matvec',
+           'factor_kkt_cr', 'matvec_assembled_nl', 'solve_factored_cr_nl',
            'solve_structured_kkt']
+
+METHODS = ('scan', 'cr')
+
+
+def check_method(method):
+    """Raise for a KKT method the port does not provide."""
+    if method == 'spike':
+        raise NotImplementedError(
+            "kkt_method='spike' is not ported to opty_tpu_torch yet "
+            "(ROADMAP queue 1 item 15: multi-GPU); use 'scan' or 'cr'.")
+    if method not in METHODS:
+        raise ValueError("kkt_method must be one of {}, not {!r}".format(
+            METHODS + ('spike',), method))
 
 
 class KKTBlocks(NamedTuple):
@@ -84,13 +112,7 @@ def _assemble_node_blocks_nl(blocks: KKTBlocks):
             *range(len(lead)), -1, -3, -2)
     F[..., nz:, :bw, :] = to_lanes(blocks.C)
 
-    Kbb = new(bw + o, bw + o)
-    Kbb[..., :bw, :bw] = blocks.Hww
-    if o:
-        Kbb[..., :bw, bw:] = blocks.Gw.transpose(-1, -2)
-        Kbb[..., bw:, :bw] = blocks.Gw
-        Kbb[..., bw:, bw:] = -torch.diag_embed(blocks.Di)
-    return D, E, F, Kbb
+    return D, E, F, _assemble_border(blocks)
 
 
 def _equilibrate_nl(D, E, F, Kbb):
@@ -107,12 +129,8 @@ def _equilibrate_nl(D, E, F, Kbb):
     diag_border = torch.abs(torch.diagonal(Kbb, dim1=-2, dim2=-1))
     big = torch.clamp(torch.amax(diag_nodes, dim=(-2, -1)), min=1.0)
     floor = 1e-12 * big
-
-    def inv_sqrt(v, fl):
-        return 1.0 / torch.sqrt(torch.maximum(v, fl))
-
-    sn = inv_sqrt(diag_nodes, floor[..., None, None])
-    sb = inv_sqrt(diag_border, floor[..., None]) if diag_border.numel() \
+    sn = _inv_sqrt(diag_nodes, floor[..., None, None])
+    sb = _inv_sqrt(diag_border, floor[..., None]) if diag_border.numel() \
         else diag_border
     D = D * sn[..., :, None, :] * sn[..., None, :, :]
     sn_prev = torch.cat([sn[..., :1], sn[..., :-1]], dim=-1)
@@ -120,6 +138,235 @@ def _equilibrate_nl(D, E, F, Kbb):
     F = F * sn[..., :, None, :] * sb[..., None, :, None]
     Kbb = Kbb * sb[..., :, None] * sb[..., None, :]
     return D, E, F, Kbb, sn, sb
+
+
+class KKTFactorization(NamedTuple):
+    """Scan factorization, lanes first like every solver array (the
+    solver selects lanes of it).  The per-node arrays are views of
+    node-major storage, (N, ..., ·) in memory, so each step of the
+    recursions reads and writes one contiguous slice over the lanes."""
+    S_inv: torch.Tensor          # (..., N, d, d) inverses of the Schur pivots
+    Melim: torch.Tensor          # (..., N, d, d) multipliers E_k S_{k-1}^-1
+    Ft: torch.Tensor             # (..., N, d, b) eliminated border columns
+    E: torch.Tensor              # (..., N, d, d) sub-diagonal blocks
+    Kbb_schur_inv: torch.Tensor  # (..., b, b) inverse border Schur complement
+    scale_nodes: torch.Tensor    # (..., N, d) Jacobi equilibration scales
+    scale_border: torch.Tensor   # (..., b)
+
+
+def _assemble_border(blocks: KKTBlocks):
+    """The dense border matrix Kbb (..., b, b)."""
+    lead = blocks.Hww.shape[:-2]
+    bw = blocks.Hww.shape[-1]
+    o = blocks.Gz.shape[-3]
+    Kbb = blocks.Hww.new_zeros(lead + (bw + o, bw + o))
+    Kbb[..., :bw, :bw] = blocks.Hww
+    if o:
+        Kbb[..., :bw, bw:] = blocks.Gw.transpose(-1, -2)
+        Kbb[..., bw:, :bw] = blocks.Gw
+        Kbb[..., bw:, bw:] = -torch.diag_embed(blocks.Di)
+    return Kbb
+
+
+def _assemble_node_blocks(blocks: KKTBlocks):
+    """Node-major assembly: returns D (..., N, d, d), E (..., N, d, d),
+    F (..., N, d, b) and the border matrix Kbb (..., b, b)."""
+    lead = blocks.Hd.shape[:-3]
+    N, nz = blocks.Hd.shape[-3], blocks.Hd.shape[-1]
+    M = blocks.P.shape[-2]
+    bw = blocks.Hw.shape[-1]
+    o = blocks.Gz.shape[-3]
+    d = nz + M
+    new = lambda *shape: blocks.Hd.new_zeros(lead + shape)
+
+    D = new(N, d, d)
+    D[..., :nz, :nz] = blocks.Hd
+    D[..., :nz, nz:] = blocks.P.transpose(-1, -2)
+    D[..., nz:, :nz] = blocks.P
+    D[..., nz:, nz:] = torch.diag_embed(-blocks.Ds)
+
+    E = new(N, d, d)
+    E[..., :nz, :nz] = blocks.Ho.transpose(-1, -2)
+    E[..., nz:, :nz] = blocks.Q
+    E[..., 0, :, :] = 0.0
+
+    F = new(N, d, bw + o)
+    F[..., :nz, :bw] = blocks.Hw
+    if o:
+        F[..., :nz, bw:] = blocks.Gz.movedim(-3, -1)
+    F[..., nz:, :bw] = blocks.C
+    return D, E, F, _assemble_border(blocks)
+
+
+def _inv_sqrt(v, floor):
+    return 1.0 / torch.sqrt(torch.maximum(v, floor))
+
+
+def _equilibrate(D, E, F, Kbb):
+    """Symmetric Jacobi scaling s_i = 1/sqrt(|K_ii|) of the node-major
+    blocks (see _equilibrate_nl); the floor is relative to the largest
+    node diagonal of each lane.  Scales are sn (..., N, d), sb (..., b).
+    """
+    diag_nodes = torch.abs(torch.diagonal(D, dim1=-2, dim2=-1))
+    diag_border = torch.abs(torch.diagonal(Kbb, dim1=-2, dim2=-1))
+    big = torch.clamp(torch.amax(diag_nodes, dim=(-2, -1)), min=1.0)
+    floor = 1e-12 * big
+    sn = _inv_sqrt(diag_nodes, floor[..., None, None])
+    sb = _inv_sqrt(diag_border, floor[..., None]) if diag_border.numel() \
+        else diag_border
+    D = D * sn[..., :, :, None] * sn[..., :, None, :]
+    sn_prev = torch.cat([sn[..., :1, :], sn[..., :-1, :]], dim=-2)
+    E = E * sn[..., :, :, None] * sn_prev[..., :, None, :]
+    F = F * sn[..., :, :, None] * sb[..., None, None, :]
+    Kbb = Kbb * sb[..., :, None] * sb[..., None, :]
+    return D, E, F, Kbb, sn, sb
+
+
+def _cast_blocks(blocks: KKTBlocks, factor_dtype):
+    """The blocks in the factorization dtype (placement and scaling then
+    run in it; refinement uses the uncast blocks)."""
+    if factor_dtype is None or blocks.Hd.dtype == factor_dtype:
+        return blocks
+    return KKTBlocks(*[a.to(factor_dtype) for a in blocks])
+
+
+def _node_first(a):
+    """(..., N, x, y) -> (N, ..., x, y), a view."""
+    return a.movedim(-3, 0)
+
+
+def _lanes_first(a):
+    """(N, ..., x, y) -> (..., N, x, y), a view."""
+    return a.movedim(0, -3)
+
+
+def factor_kkt(blocks: KKTBlocks, factor_dtype=None) -> KKTFactorization:
+    """Block-tridiagonal forward elimination with border Schur
+    accumulation.  RHS-independent; reused by every refinement solve."""
+    blocks = _cast_blocks(blocks, factor_dtype)
+    D, E, F, Kbb, sn, sb = _equilibrate(*_assemble_node_blocks(blocks))
+    D, E, F = (_node_first(a).contiguous() for a in (D, E, F))
+    ET = E.transpose(-1, -2).contiguous()
+    N, b = D.shape[0], F.shape[-1]
+
+    S_inv = torch.empty_like(D)
+    Melim = torch.empty_like(D)
+    Ft = torch.empty_like(F)
+    S = torch.empty_like(D[0])              # scratch of one step
+    MET = torch.empty_like(D[0])
+    S_prev_inv = torch.zeros_like(D[0])
+    Ft_prev = torch.zeros_like(F[0])
+    for k in range(N):
+        Mk = block_matmul(E[k], S_prev_inv, out=Melim[k])
+        torch.sub(D[k], block_matmul(Mk, ET[k], out=MET), out=S)
+        S_prev_inv = block_inv(S, out=S_inv[k])
+        Ft_prev = torch.sub(F[k], Mk @ Ft_prev, out=Ft[k])
+
+    if b:
+        dKbb = -(Ft.transpose(-1, -2) @ (S_inv @ Ft))
+        Kbb_schur_inv = block_inv(Kbb + torch.sum(dKbb, dim=0))
+    else:
+        Kbb_schur_inv = Kbb.new_zeros(Kbb.shape)
+    return KKTFactorization(_lanes_first(S_inv), _lanes_first(Melim),
+                            _lanes_first(Ft), _lanes_first(E),
+                            Kbb_schur_inv, sn, sb)
+
+
+def solve_factored(fac: KKTFactorization, r_nodes, r_border):
+    """Solve with a scan factorization: r_nodes (..., N, d), r_border
+    (..., b) -> (u (..., N, d), beta (..., b)).
+
+    The rhs and solution go through the equilibration scales
+    (K = S^-1 K~ S^-1  =>  u = S K~^-1 S r)."""
+    S_inv, Melim, Ft, E = (_node_first(a)
+                           for a in (fac.S_inv, fac.Melim, fac.Ft, fac.E))
+    dtype = S_inv.dtype
+    r = (r_nodes * fac.scale_nodes).to(dtype).movedim(-2, 0)
+    rb = (r_border * fac.scale_border).to(dtype)
+    N, b = S_inv.shape[0], Ft.shape[-1]
+
+    rt = r.new_empty(r.shape)
+    rt_prev = torch.zeros_like(r[0])
+    for k in range(N):
+        rt_prev = torch.sub(r[k], (Melim[k] @ rt_prev[..., None])[..., 0],
+                            out=rt[k])
+
+    if b:
+        drb = -(Ft.transpose(-1, -2)
+                @ (S_inv @ rt[..., None]))[..., 0]
+        beta = (fac.Kbb_schur_inv
+                @ (rb + torch.sum(drb, dim=0))[..., None])[..., 0]
+        Fb = (Ft @ beta[..., None])[..., 0]
+    else:
+        beta = rb.new_zeros(rb.shape)
+    ET_next = torch.cat([E[1:], torch.zeros_like(E[:1])],
+                        dim=0).transpose(-1, -2)
+
+    u = rt.new_empty(rt.shape)
+    u_next = torch.zeros_like(rt[0])
+    for k in reversed(range(N)):
+        rhs = rt[k] - (ET_next[k] @ u_next[..., None])[..., 0]
+        if b:
+            rhs = rhs - Fb[k]
+        u_next = torch.matmul(S_inv[k], rhs[..., None],
+                              out=u[k][..., None])[..., 0]
+    return u.movedim(0, -2) * fac.scale_nodes, beta * fac.scale_border
+
+
+def kkt_matvec(blocks: KKTBlocks, u, beta):
+    """Apply the full KKT operator from its blocks: u (..., N, d),
+    beta (..., b) -> (K @ [u; beta]) split the same way.  Used for the
+    scan path's iterative refinement."""
+    nz = blocks.Hd.shape[-1]
+    M = blocks.P.shape[-2]
+    bw = blocks.Hw.shape[-1]
+    o = blocks.Gz.shape[-3]
+    z, y = u[..., :nz], u[..., nz:nz + M]
+    w, yi = beta[..., :bw], beta[..., bw:]
+
+    def prev(a):                   # value at node k-1, zero at k = 0
+        return torch.cat([torch.zeros_like(a[..., :1, :]),
+                          a[..., :-1, :]], dim=-2)
+
+    def nxt(a):                    # value at node k+1, zero at k = N-1
+        return torch.cat([a[..., 1:, :], torch.zeros_like(a[..., :1, :])],
+                         dim=-2)
+
+    def nxt_block(a):
+        return torch.cat([a[..., 1:, :, :],
+                          torch.zeros_like(a[..., :1, :, :])], dim=-3)
+
+    ein = torch.einsum
+    z_prev = prev(z)
+    # z rows: Hd_k z_k + Ho_k^T z_{k-1} + Ho_{k+1} z_{k+1} + Hw_k w
+    #         + P_k^T y_k + Q_{k+1}^T y_{k+1} + Gz_k^T yi
+    rz = (ein('...kij,...kj->...ki', blocks.Hd, z)
+          + ein('...kji,...kj->...ki', blocks.Ho, z_prev)
+          + ein('...kij,...kj->...ki', nxt_block(blocks.Ho), nxt(z))
+          + ein('...kij,...j->...ki', blocks.Hw, w)
+          + ein('...kji,...kj->...ki', blocks.P, y)
+          + ein('...kji,...kj->...ki', nxt_block(blocks.Q), nxt(y)))
+    if o:
+        rz = rz + ein('...oki,...o->...ki', blocks.Gz, yi)
+
+    # y rows: P_k z_k + Q_k z_{k-1} + C_k w - Ds_k y_k
+    ry = (ein('...kij,...kj->...ki', blocks.P, z)
+          + ein('...kij,...kj->...ki', blocks.Q, z_prev)
+          + ein('...kij,...j->...ki', blocks.C, w)
+          - blocks.Ds * y)
+
+    # w rows: sum_k Hw_k^T z_k + Hww w + sum_k C_k^T y_k + Gw^T yi
+    rw = (ein('...kij,...ki->...j', blocks.Hw, z)
+          + ein('...ij,...j->...i', blocks.Hww, w)
+          + ein('...kij,...ki->...j', blocks.C, y))
+    if o:
+        rw = rw + ein('...ij,...i->...j', blocks.Gw, yi)
+        # instance rows: sum_k Gz z_k + Gw w - Di yi
+        ri = (ein('...oki,...ki->...o', blocks.Gz, z)
+              + ein('...ij,...j->...i', blocks.Gw, w) - blocks.Di * yi)
+    else:
+        ri = yi
+    return torch.cat([rz, ry], dim=-1), torch.cat([rw, ri], dim=-1)
 
 
 class CRFactorization(NamedTuple):
@@ -175,22 +422,35 @@ def solve_factored_cr_nl(cf: CRFactorization, r_nl, r_border):
 
 def solve_structured_kkt(blocks: KKTBlocks, r_nodes, r_border,
                          factor_dtype=None, refine_steps=1,
-                         method='cr'):
-    """Solve K [u; beta] = [r_nodes (..., N, d); r_border (..., b)] with
-    ``refine_steps`` rounds of iterative refinement."""
-    if method != 'cr':
-        raise NotImplementedError(
-            "kkt_method='{}' is not ported to opty_tpu_torch yet (ROADMAP "
-            "queue 1); use 'cr'.".format(method))
+                         method='scan'):
+    """Solve K [u; beta] = [r_nodes (..., N, d); r_border (..., b)].
+
+    The factorization runs once in ``factor_dtype``; ``refine_steps``
+    rounds of iterative refinement with the full-precision operator
+    recover accuracy.  ``method``: 'scan' (sequential block LU, lowest
+    flops) or 'cr' (cyclic reduction, log depth)."""
+    check_method(method)
     work_dtype = blocks.Hd.dtype
-    cf = factor_kkt_cr(blocks, factor_dtype=factor_dtype)
-    r_nl = r_nodes.transpose(-1, -2)
-    u, beta = solve_factored_cr_nl(cf, r_nl, r_border)
+    if method == 'cr':
+        cf = factor_kkt_cr(blocks, factor_dtype=factor_dtype)
+        r_nl = r_nodes.transpose(-1, -2)
+        u, beta = solve_factored_cr_nl(cf, r_nl, r_border)
+        u = u.to(work_dtype)
+        beta = beta.to(work_dtype)
+        for _ in range(refine_steps):
+            Ku, Kb = matvec_assembled_nl(cf, u, beta)
+            du, dbeta = solve_factored_cr_nl(cf, r_nl - Ku, r_border - Kb)
+            u = u + du.to(work_dtype)
+            beta = beta + dbeta.to(work_dtype)
+        return u.transpose(-1, -2), beta
+
+    fac = factor_kkt(blocks, factor_dtype=factor_dtype)
+    u, beta = solve_factored(fac, r_nodes, r_border)
     u = u.to(work_dtype)
     beta = beta.to(work_dtype)
     for _ in range(refine_steps):
-        Ku, Kb = matvec_assembled_nl(cf, u, beta)
-        du, dbeta = solve_factored_cr_nl(cf, r_nl - Ku, r_border - Kb)
+        Ku, Kb = kkt_matvec(blocks, u, beta)
+        du, dbeta = solve_factored(fac, r_nodes - Ku, r_border - Kb)
         u = u + du.to(work_dtype)
         beta = beta + dbeta.to(work_dtype)
-    return u.transpose(-1, -2), beta
+    return u, beta

@@ -3,7 +3,7 @@ PyTorch versions and their launch counters.
 
 The counterpart of opty_tpu/ops/pallas_pcr.py.  Two kernels, both in
 csrc/pcr.cu, built for Hopper (sm_90a) with nvcc at first use and
-loaded through ctypes:
+loaded through ctypes (ops/cuda_build.py):
 
 * ``pcr_factor_levels`` replaces ``_factor_kernel`` (reached through
   ``pcr_factor_fused``): every PCR level of the bordered
@@ -28,14 +28,10 @@ wrapper raises.  Each wrapper counts its kernel launches in
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from .cuda_build import build_kernels, check_cuda, launch, load
 from .lanes import block_inv_nl, matmul_nl, matvec_nl, transpose_nl
 from .tridiag import _down, _up, num_levels
 
@@ -47,15 +43,8 @@ SUPPORTED_D = (3, 5)      # block sizes instantiated in csrc/pcr.cu
 MAX_B = 8                 # widest border the kernels take
 _MAX_SMEM = 227 * 1024    # dynamic shared memory a block may use (H100)
 
-_CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-_BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
-
 factor_launches = 0
 downsweep_launches = 0
-_libs = {}
 
 
 def reset_launch_counts():
@@ -105,95 +94,11 @@ def pcr_downsweep_plain(A, B, r):
     return r
 
 
-# ---------------------------------------------------------------------------
-# build and load (first use only: importing this module needs no nvcc)
-# ---------------------------------------------------------------------------
-
-def _nvcc():
-    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: the CUDA kernels of '
-                           'opty_tpu_torch are built at first use on a '
-                           'machine with the CUDA toolkit')
-    return path
-
-
-def _target(src):
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / '{}-{}.so'.format(src.stem, digest[:16])
-
-
-def build_kernels():
-    """Compile every csrc/*.cu that has no current build, one nvcc per
-    source, all started together.  Returns {source name: compiler
-    output} for the sources built by this call (ptxas -v reports
-    registers, shared memory and spills)."""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for src in sorted(_CSRC.glob('*.cu')):
-        target = _target(src)
-        if target.exists():
-            continue
-        tmp = target.with_suffix('.{}.tmp'.format(os.getpid()))
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
-        jobs[src.name] = (target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    logs = {}
-    for name, (target, tmp, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed on {}:\n{}'.format(name, out))
-        os.replace(tmp, target)        # atomic: concurrent builds agree
-        logs[name] = out
-    return logs
-
-
-def _lib(stem):
-    if stem not in _libs:
-        src = _CSRC / (stem + '.cu')
-        target = _target(src)
-        if not target.exists():
-            build_kernels()
-        lib = ctypes.CDLL(str(target))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for suffix in ('f32', 'f64'):
-            fn = getattr(lib, 'pcr_factor_levels_' + suffix)
-            fn.argtypes = [vp] * 9 + [ci] * 5 + [vp]
-            fn.restype = ci
-            fn = getattr(lib, 'pcr_downsweep_' + suffix)
-            fn.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-            fn.restype = ci
-        _libs[stem] = lib
-    return _libs[stem]
-
-
-def _suffix(dtype):
-    if dtype == torch.float32:
-        return 'f32'
-    if dtype == torch.float64:
-        return 'f64'
-    raise ValueError('the PCR kernels take float32 or float64, not '
-                     '{}'.format(dtype))
-
-
-def _check_cuda(name, tensors, shapes):
-    dev = tensors[0].device
-    dtype = tensors[0].dtype
-    for t, shape in zip(tensors, shapes):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError('{}: every input must share one device and '
-                             'dtype'.format(name))
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError('{}: expected shape {}, got {}'.format(
-                name, tuple(shape), tuple(t.shape)))
-        if not t.is_contiguous():
-            raise ValueError('{}: inputs must be contiguous'.format(name))
-    if dev.type != 'cuda':
-        raise ValueError('{}: tensors must lie on the CPU or on a CUDA '
-                         'device, not {}'.format(name, dev))
-    return _suffix(dtype)
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
+               for name, args in (
+                   ('pcr_factor_levels', [_VP] * 9 + [_CI] * 5 + [_VP]),
+                   ('pcr_downsweep', [_VP] * 4 + [_CI] * 4 + [_VP]))}
 
 
 def _check_dims(name, d, b, N):
@@ -224,9 +129,9 @@ def pcr_factor_levels(D, E, F):
     if D.device.type == 'cpu' and E.device.type == 'cpu' \
             and F.device.type == 'cpu':
         return pcr_factor_levels_plain(D, E, F)
-    suffix = _check_cuda('pcr_factor_levels', (D, E, F),
-                         ((nbatch, d, d, N), (nbatch, d, d, N),
-                          (nbatch, d, b, N)))
+    suffix = check_cuda('pcr_factor_levels', (D, E, F),
+                        ((nbatch, d, d, N), (nbatch, d, d, N),
+                         (nbatch, d, b, N)))
     _check_dims('pcr_factor_levels', d, b, N)
     L = num_levels(N)
     new = lambda *shape: torch.empty(shape, dtype=D.dtype, device=D.device)
@@ -236,16 +141,12 @@ def pcr_factor_levels(D, E, F):
     Fp = new(nbatch, d, b, N)
     Z = new(nbatch, d, b, N)
     scratch = new(nbatch, 2 * (3 * d * d + d * b) + d * d, N)
-    fn = getattr(_lib('pcr'), 'pcr_factor_levels_' + suffix)
+    fn = getattr(load('pcr', _SIGNATURES), 'pcr_factor_levels_' + suffix)
+    launch('pcr_factor_levels', fn,
+           (D.data_ptr(), E.data_ptr(), F.data_ptr(), A.data_ptr(),
+            B.data_ptr(), Dinv.data_ptr(), Fp.data_ptr(), Z.data_ptr(),
+            scratch.data_ptr(), nbatch, d, b, N, L), D.device)
     global factor_launches
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device).cuda_stream
-        err = fn(D.data_ptr(), E.data_ptr(), F.data_ptr(), A.data_ptr(),
-                 B.data_ptr(), Dinv.data_ptr(), Fp.data_ptr(), Z.data_ptr(),
-                 scratch.data_ptr(), nbatch, d, b, N, L, stream)
-    if err != 0:
-        raise RuntimeError('pcr_factor_levels launch failed: cudaError '
-                           '{}'.format(err))
     factor_launches += 1
     return A, B, Dinv, Fp, Z
 
@@ -258,23 +159,18 @@ def pcr_downsweep(A, B, r):
     if A.device.type == 'cpu' and B.device.type == 'cpu' \
             and r.device.type == 'cpu':
         return pcr_downsweep_plain(A, B, r)
-    suffix = _check_cuda('pcr_downsweep', (A, B, r),
-                         ((nbatch, L, d, d, N), (nbatch, L, d, d, N),
-                          (nbatch, d, N)))
+    suffix = check_cuda('pcr_downsweep', (A, B, r),
+                        ((nbatch, L, d, d, N), (nbatch, L, d, d, N),
+                         (nbatch, d, N)))
     _check_dims('pcr_downsweep', d, 0, N)
     smem = 2 * d * N * r.element_size()
     if smem > _MAX_SMEM:
         raise ValueError('pcr_downsweep: r needs {} bytes of shared memory '
                          '(limit {})'.format(smem, _MAX_SMEM))
     out = torch.empty_like(r)
-    fn = getattr(_lib('pcr'), 'pcr_downsweep_' + suffix)
+    fn = getattr(load('pcr', _SIGNATURES), 'pcr_downsweep_' + suffix)
+    launch('pcr_downsweep', fn, (A.data_ptr(), B.data_ptr(), r.data_ptr(),
+                                 out.data_ptr(), nbatch, d, N, L), r.device)
     global downsweep_launches
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(),
-                 nbatch, d, N, L, stream)
-    if err != 0:
-        raise RuntimeError('pcr_downsweep launch failed: cudaError '
-                           '{}'.format(err))
     downsweep_launches += 1
     return out

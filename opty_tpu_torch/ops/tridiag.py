@@ -7,7 +7,8 @@ equation k eliminates its neighbours at distance s = 2**l at once, so
 each level is a batch of small block products and inverses over all
 nodes and instances.  The level loop and the right-hand-side downsweep
 run in the CUDA kernels of ops/pcr_kernels.py on the card (their plain
-versions on the CPU); the border Schur complement stays here.
+versions on the CPU); the border Schur complement is formed here and
+inverted by the ``block_inv`` kernel (ops/block_kernels.py).
 
 After elimination each node satisfies ``D_k u_k + F'_k beta = r'_k``;
 substituting into the border rows gives a small dense Schur complement
@@ -22,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from .lanes import block_inv_nl, matvec_nl
+from .lanes import matvec_nl
 
 __all__ = ['PCRFactorization', 'pcr_factor', 'pcr_solve', 'num_levels']
 
@@ -91,8 +92,11 @@ def pcr_factor(D, E, F, Kbb):
 
 
 def _small_inv(A):
-    """Inverse of small dense matrices via the node-last routine."""
-    return block_inv_nl(A[..., None])[..., 0]
+    """Inverse of the (..., b, b) border Schur complements: the
+    ``block_inv`` kernel on the card, its plain version (block_inv_nl,
+    as before the kernel existed) on the CPU."""
+    from .block_kernels import block_inv
+    return block_inv(A.contiguous())
 
 
 def pcr_solve(fac: PCRFactorization, r_nodes, r_border):

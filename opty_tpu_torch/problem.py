@@ -21,6 +21,7 @@ import torch
 from .config import default_dtype, resolve_device
 from .nlp.collocation import make_collocation_nlp_functions
 from .nlp.ipm import IPMOptions, IPMResult, check_options, solve_ipm
+from .nlp.kkt import check_method
 from .nlp.status import STATUS_MESSAGES
 from .transcribe.collocator import ConstraintCollocator
 from .utils import parse_free
@@ -158,15 +159,13 @@ class Problem:
 
         ``factor_dtype`` selects the KKT factorization precision
         (float32 + refinement on the card, float64 on the CPU by
-        default); ``kkt_method`` must be 'cr'; ``refine_steps`` and
+        default); ``kkt_method`` is 'scan' or 'cr' (default: 'cr' on
+        the card, 'scan' on the CPU); ``refine_steps`` and
         ``chunk_iters`` are accepted as in opty_tpu."""
         if factor_dtype is not None:
             self._factor_dtype = _torch_dtype(factor_dtype)
         if kkt_method is not None:
-            if kkt_method != 'cr':
-                raise NotImplementedError(
-                    "kkt_method='{}' is not ported to opty_tpu_torch yet "
-                    "(ROADMAP queue 1); use 'cr'.".format(kkt_method))
+            check_method(kkt_method)
             self._kkt_method = kkt_method
         if 'refine_steps' in kwargs:
             self._refine_steps = kwargs.pop('refine_steps')

@@ -1,6 +1,6 @@
-"""The CUDA kernels of opty_tpu_torch against their plain versions, on
-the card.  Marked ``cuda``; without a card every test skips.  On a
-machine with one:
+"""The CUDA kernels of opty_tpu_torch (csrc/pcr.cu, csrc/blocks.cu)
+against their plain versions, on the card.  Marked ``cuda``; without a
+card every test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from opty_tpu_torch.ops import block_kernels as bk
 from opty_tpu_torch.ops import pcr_kernels as pk
 from opty_tpu_torch.ops import tridiag
 
@@ -103,3 +104,125 @@ def test_wrapper_refuses_what_the_build_lacks(card):
     D, E, F, _ = _system(1, 5, 2, 16, torch.float32, card)
     with pytest.raises(ValueError, match='contiguous'):
         pk.pcr_factor_levels(D.transpose(1, 2), E, F)
+
+
+# ---------------------------------------------------------------------------
+# batched small-matrix kernels (csrc/blocks.cu)
+# ---------------------------------------------------------------------------
+
+# same operation order on both sides (nvcc -fmad=false): 0 expected on
+# finite inputs; the stated bounds absorb any order difference
+BLOCK_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+BATCHES = (1, 7, 32, 16032)
+
+
+def _matrices(B, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, d, d)) + 2.0 * d * np.eye(d)
+    return torch.as_tensor(A, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d', bk.SUPPORTED_D)
+def test_block_kernels_match_plain(card, d, dtype):
+    for B in BATCHES:
+        A = _matrices(B, d, dtype, card, seed=B)
+        Bm = _matrices(B, d, dtype, card, seed=B + 1)
+        X = bk.block_inv(A)
+        C = bk.block_matmul(A, Bm)
+        for got, want in ((X, bk.block_inv_plain(A)),
+                          (C, bk.block_matmul_plain(A, Bm))):
+            assert got.device.type == 'cuda' and got.dtype == dtype
+            assert torch.isfinite(got).all()
+            assert _rel(got, want) <= BLOCK_TOL[dtype], B
+
+
+def test_block_kernels_batch_shapes_and_out(card):
+    A = _matrices(3 * 11, 6, torch.float64, card).reshape(3, 11, 6, 6)
+    out = torch.empty_like(A)
+    assert bk.block_inv(A, out=out) is out
+    assert _rel(out, bk.block_inv_plain(A)) <= BLOCK_TOL[torch.float64]
+    C = bk.block_matmul(A, out)
+    eye = torch.eye(6, dtype=A.dtype, device=card).expand_as(C)
+    assert _rel(C, eye) <= 1e-12
+
+
+def test_block_inv_zero_leading_pivot(card):
+    A = torch.tensor([[[0.0, 1.0], [1.0, 0.0]], [[2.0, 1.0], [1.0, 2.0]]],
+                     dtype=torch.float64, device=card)
+    want = torch.linalg.inv(A.cpu())
+    assert _rel(bk.block_inv(A).cpu(), want) <= 1e-15
+
+
+def test_block_inv_singular_batch(card):
+    """Singular matrices among regular ones: the kernel's output is
+    non-finite wherever the plain version's is, and equal elsewhere."""
+    A = _matrices(6, 3, torch.float64, card, seed=4)
+    A[1] = torch.tensor([[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [1.0, 0.0, 1.0]])
+    A[3] = 0.0
+    A[4, :, 1] = 0.0
+    got = bk.block_inv(A)
+    want = bk.block_inv_plain(A)
+    bad = ~torch.isfinite(want)
+    assert bad[1].any() and bad[3].any() and bad[4].any()
+    assert (~torch.isfinite(got))[bad].all()
+    both = torch.isfinite(got) & ~bad
+    assert torch.equal(got[both], want[both])
+    assert torch.isfinite(got[[0, 2, 5]]).all()
+
+
+def test_block_wrappers_refuse_bad_input(card):
+    A = _matrices(4, 5, torch.float32, card)
+    with pytest.raises(ValueError, match='not built'):
+        bk.block_inv(_matrices(4, 9, torch.float32, card))
+    with pytest.raises(ValueError, match='not built'):
+        bk.block_matmul(_matrices(4, 1, torch.float64, card),
+                        _matrices(4, 1, torch.float64, card))
+    with pytest.raises(ValueError):
+        bk.block_inv(A.half())
+    with pytest.raises(ValueError, match='share one device'):
+        bk.block_matmul(A, A.double())
+    with pytest.raises(ValueError, match='share one device'):
+        bk.block_matmul(A, A.cpu())
+    with pytest.raises(ValueError, match='expected shape'):
+        bk.block_matmul(A, A[:2])
+    with pytest.raises(ValueError, match=r'\(\.\.\., d, d\)'):
+        bk.block_inv(A[..., :4])
+    with pytest.raises(ValueError, match='contiguous'):
+        bk.block_inv(A.transpose(-1, -2))
+    with pytest.raises(ValueError, match='contiguous'):
+        bk.block_inv(A, out=torch.empty_like(A).transpose(-1, -2))
+
+
+def test_block_launch_counters_move(card):
+    A = _matrices(8, 5, torch.float64, card)
+    bk.reset_launch_counts()
+    bk.block_inv(A)
+    bk.block_matmul(A, A)
+    bk.block_matmul(A, A)
+    assert (bk.inv_launches, bk.matmul_launches) == (1, 2)
+    bk.block_inv_plain(A)
+    bk.block_matmul_plain(A, A)
+    assert (bk.inv_launches, bk.matmul_launches) == (1, 2)
+
+
+def test_scan_solve_on_card_equals_cpu(card):
+    """A scan solve through the block kernels on the card against the
+    same solve through the plain versions on the CPU."""
+    from opty_tpu_torch.models import swing_up_problem
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        prob = swing_up_problem(num_nodes=11, torque_bound=20.0, device=dev)
+        prob.set_solver_options(kkt_method='scan', factor_dtype=torch.float64,
+                                mu_strategy='monotone', use_soc=False,
+                                max_iter=40)
+        x0 = np.random.default_rng(29).normal(size=prob.num_free)
+        bk.reset_launch_counts()
+        out[dev] = prob.solve(x0)[1]
+        if dev == 'cuda':
+            assert bk.inv_launches > 0 and bk.matmul_launches > 0
+    got, want = out['cuda'], out['cpu']
+    assert got['status'] == want['status']
+    assert got['iterations'] == want['iterations']
+    assert abs(got['obj_val'] - want['obj_val']) \
+        <= 1e-10 * abs(want['obj_val'])

@@ -153,6 +153,5 @@ def test_solve_structured_kkt_random_blocks():
 
 def test_unported_methods_raise(setup):
     _, tc, _, _, to, tg, _ = setup
-    for method in ('scan', 'spike'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_functions(tc, to, tg, kkt_method=method)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        torch_functions(tc, to, tg, kkt_method='spike')

@@ -60,8 +60,8 @@ def test_unported_options_raise():
         prob.set_solver_options(mu_strategy='adaptive', use_soc=False)
     with pytest.raises(NotImplementedError, match='second-order'):
         prob.set_solver_options(mu_strategy='monotone', use_soc=True)
-    with pytest.raises(NotImplementedError, match="'scan'"):
-        prob.set_solver_options(kkt_method='scan')
+    with pytest.raises(NotImplementedError, match="'spike'.*item 15"):
+        prob.set_solver_options(kkt_method='spike')
     # the JAX package's defaults (adaptive mu, SOC) are refused at the
     # first solve too, never run silently
     with pytest.raises(NotImplementedError):
@@ -70,7 +70,8 @@ def test_unported_options_raise():
 
 def test_cpu_defaults():
     from opty_tpu_torch import config
-    assert config.default_kkt_method('cpu') == 'cr'
+    assert config.default_kkt_method('cpu') == 'scan'
+    assert config.default_kkt_method('cuda') == 'cr'
     assert config.default_factor_dtype('cpu') == torch.float64
     assert config.default_factor_dtype('cuda') == torch.float32
     assert torch.backends.cuda.matmul.allow_tf32 is False
