@@ -11,10 +11,14 @@ Phases, each reported on its own line(s) with its wall time:
    print what ptxas reports (registers, shared memory, spills);
 3. kernels: each CUDA kernel against its plain version on the card,
    float32 and float64, timed with CUDA events: the PCR kernels at the
-   main path's shapes (B = 32, d = 5, b = 4, N = 501), the block
-   inverse and product at the scan path's per-node call (B = 8 and 32
-   lanes, d = 5), at a whole node axis (B = 16,032) and at the border's
-   d = 4, beside torch.linalg.inv_ex and torch.bmm as yardsticks;
+   main path's shapes (B = 32, d = 5, b = 4, N = 501), at B = 8 and 128,
+   at N = 101 and at one instance of N = 4,000 (the factor's state in
+   its global scratch), each with its launch plan (grid, cluster,
+   shared memory), L2-warm and L2-cold, and the host's time to make a
+   call; the block inverse and product at the
+   scan path's per-node call (B = 8 and 32 lanes, d = 5), at a whole
+   node axis (B = 16,032) and at the border's d = 4, beside
+   torch.linalg.inv_ex and torch.bmm as yardsticks;
 4. reference: a small solve (N = 101, float64 factorization) on the card
    against the same solve on the CPU (the plain versions), once with
    kkt_method='cr' (4) and once with 'scan' (4b);
@@ -51,6 +55,13 @@ BATCH, D, B_BORDER, NODES = 32, 5, 4, 501
 SCAN_LANES = 8
 BLOCK_SHAPES = ((D, SCAN_LANES), (D, BATCH), (D, BATCH * NODES),
                 (B_BORDER, BATCH))
+# the PCR kernels' shapes (batch, N) at d = 5, b = 4: the main path's
+# first, then fewer and more lanes, the reference solve's N, and an
+# instance beyond a cluster's shared memory
+PCR_SHAPES = ((BATCH, NODES), (8, NODES), (128, NODES), (BATCH, 101),
+              (1, 4000))
+# read between L2-cold calls: five times the H100's 50 MB L2
+FLUSH_BYTES = 256 * 2 ** 20
 # peak rates (NVIDIA data sheets): device memory bytes/s and FP32 FLOP/s
 # outside the tensor cores, by card variant
 PEAKS = {'H100 PCIe': (2.0e12, 51e12), 'H100 NVL': (3.9e12, 60e12),
@@ -100,11 +111,12 @@ def timed(fn, reps, warmup=3):
 
 
 def device_ms(fn, reps=50, sleep_cycles=10 ** 8):
-    """Device time per call of ``fn``.  The calls are queued behind a
-    sleep kernel (about 50 ms at the H100's clocks), so the events
-    around them time the device running them back to back and none of
-    the host's time to make them, which bounds a loop of microsecond
-    kernels; the function fails if the host did not stay ahead."""
+    """(device ms, host ms) per call of ``fn``.  The calls are queued
+    behind a sleep kernel (about 50 ms at the H100's clocks), so the
+    events around them time the device running them back to back and
+    none of the host's time to make them, which bounds a loop of
+    microsecond kernels, and the host's clock times the calls alone;
+    the function fails if the host did not stay ahead."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -123,19 +135,51 @@ def device_ms(fn, reps=50, sleep_cycles=10 ** 8):
         fail('device timing: the host took {:.2f} ms to queue the calls, '
              'the sleep only {:.2f} ms'.format(
                  host_ms, slept.elapsed_time(start)))
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, host_ms / reps
 
 
-def random_system(dtype, seed=0):
-    """Inputs made like tests/test_pallas_pcr.py's, at main-path shapes."""
+def cold_ms(fn, flush, reps=20, sleep_cycles=10 ** 8):
+    """Device time of one call of ``fn`` with the L2 cache cold (median
+    of ``reps``).  Before each call a reduction reads ``flush``, five
+    times the H100's 50 MB L2, so the call finds none of its inputs
+    there; a read leaves clean lines, where a write would leave up to
+    50 MB of dirty ones for the timed call to write back.  Each call
+    has its own pair of events, so the flush is not counted; all are
+    queued behind a sleep kernel, as in ``device_ms``, so the device
+    never waits for the host between a start event and its call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    slept = torch.cuda.Event(enable_timing=True)
+    slept.record()
+    torch.cuda._sleep(sleep_cycles)
+    t0 = time.perf_counter()
+    for start, stop in pairs:
+        flush.sum()
+        start.record()
+        fn()
+        stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= slept.elapsed_time(pairs[0][0]):
+        fail('cold timing: the host took {:.2f} ms to queue the calls, the '
+             'sleep only {:.2f} ms'.format(
+                 host_ms, slept.elapsed_time(pairs[0][0])))
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def random_system(dtype, batch=BATCH, nodes=NODES, seed=0):
+    """Inputs made like tests/test_pallas_pcr.py's."""
     import torch
     rng = np.random.default_rng(seed)
-    Dm = rng.standard_normal((BATCH, D, D, NODES)) \
+    Dm = rng.standard_normal((batch, D, D, nodes)) \
         + 4.0 * np.eye(D)[:, :, None]
-    E = rng.standard_normal((BATCH, D, D, NODES))
+    E = rng.standard_normal((batch, D, D, nodes))
     E[..., 0] = 0.0
-    F = 0.1 * rng.standard_normal((BATCH, D, B_BORDER, NODES))
-    r = rng.standard_normal((BATCH, D, NODES))
+    F = 0.1 * rng.standard_normal((batch, D, B_BORDER, nodes))
+    r = rng.standard_normal((batch, D, nodes))
     to = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
     return to(Dm), to(E), to(F), to(r)
 
@@ -164,71 +208,105 @@ def flop_counts(d, b, N, L, batch):
     return factor, sweep
 
 
-def check_kernels(pk, name):
-    """Kernels against plain versions; returns per-kernel records."""
+def pcr_bytes(es, batch, N, L):
+    """Bytes the PCR kernels must move: each input read once, each
+    output written once (factor: D, E, F in, A, B, Dinv, Fp, Z out;
+    downsweep: A, B, r in, r out)."""
+    n_dd = batch * D * D * N
+    n_db = batch * D * B_BORDER * N
+    return (es * (2 * n_dd + n_db + 2 * L * n_dd + n_dd + 2 * n_db),
+            es * (2 * L * n_dd + 2 * batch * D * N))
+
+
+def check_pcr_shape(pk, name, dtype, batch, nodes, flush, plain):
+    """Both PCR kernels at one shape: the factor bitwise equal to its
+    plain version, the downsweep within TOL_REL; timed L2-warm
+    (``device_ms``, back to back on the same inputs), L2-cold
+    (``cold_ms``) and as calls in a host loop (``timed``); the plain
+    versions timed where ``plain``."""
     import torch
     from opty_tpu_torch.ops.tridiag import num_levels
-    key, (bw, fl) = peaks(name)
-    L = num_levels(NODES)
-    rec = {'pcr_factor_levels': {}, 'pcr_downsweep': {}}
-    for dtype in (torch.float32, torch.float64):
-        tag = str(dtype).split('.')[-1]
-        Dm, E, F, r = random_system(dtype)
-        got = pk.pcr_factor_levels(Dm, E, F)
-        want = pk.pcr_factor_levels_plain(Dm, E, F)
-        torch.cuda.synchronize()
-        errs = [rel_err(g, w) for g, w in zip(got, want)]
-        ferr = max(e[1] for e in errs)
-        fabs = max(e[0] for e in errs)
-        if not all(torch.isfinite(g).all().item() for g in got):
-            fail('pcr_factor_levels {}: non-finite output'.format(tag))
-        if ferr > TOL_REL[tag]:
-            fail('pcr_factor_levels {}: rel err {:.3e} > {:.0e}'.format(
-                tag, ferr, TOL_REL[tag]))
-        if tag == 'float32':
-            l0 = max(rel_err(got[0][:, 0], want[0][:, 0])[1],
-                     rel_err(got[1][:, 0], want[1][:, 0])[1])
-            if l0 > TOL_LEVEL0_F32:
-                fail('pcr_factor_levels level 0 rel err {:.3e}'.format(l0))
-        A, Bm = got[0], got[1]
-        s_got = pk.pcr_downsweep(A, Bm, r)
-        s_want = pk.pcr_downsweep_plain(A, Bm, r)
-        torch.cuda.synchronize()
-        sabs, serr = rel_err(s_got, s_want)
-        if not torch.isfinite(s_got).all().item() or serr > TOL_REL[tag]:
-            fail('pcr_downsweep {}: rel err {:.3e}'.format(tag, serr))
+    tag = str(dtype).split('.')[-1]
+    L = num_levels(nodes)
+    Dm, E, F, r = random_system(dtype, batch, nodes)
+    got = pk.pcr_factor_levels(Dm, E, F)
+    want = pk.pcr_factor_levels_plain(Dm, E, F)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    ferr = max(e[1] for e in errs)
+    fabs = max(e[0] for e in errs)
+    where = '{} B={} N={}'.format(tag, batch, nodes)
+    if not all(torch.isfinite(g).all().item() for g in got):
+        fail('pcr_factor_levels {}: non-finite output'.format(where))
+    if fabs != 0.0:
+        fail('pcr_factor_levels {}: not bitwise equal to its plain version '
+             '(max abs err {:.3e})'.format(where, fabs))
+    if tag == 'float32':
+        l0 = max(rel_err(got[0][:, 0], want[0][:, 0])[1],
+                 rel_err(got[1][:, 0], want[1][:, 0])[1])
+        if l0 > TOL_LEVEL0_F32:
+            fail('pcr_factor_levels level 0 rel err {:.3e}'.format(l0))
+    A, Bm = got[0], got[1]
+    s_got = pk.pcr_downsweep(A, Bm, r)
+    s_want = pk.pcr_downsweep_plain(A, Bm, r)
+    torch.cuda.synchronize()
+    sabs, serr = rel_err(s_got, s_want)
+    if not torch.isfinite(s_got).all().item() or serr > TOL_REL[tag]:
+        fail('pcr_downsweep {}: rel err {:.3e}'.format(where, serr))
 
-        f_ms = timed(lambda: pk.pcr_factor_levels(Dm, E, F), 50)
-        f_plain = timed(lambda: pk.pcr_factor_levels_plain(Dm, E, F), 5, 1)
-        s_ms = timed(lambda: pk.pcr_downsweep(A, Bm, r), 200)
-        s_plain = timed(lambda: pk.pcr_downsweep_plain(A, Bm, r), 20, 2)
+    f_bytes, s_bytes = pcr_bytes(Dm.element_size(), batch, nodes, L)
+    f_ops, s_ops = flop_counts(D, B_BORDER, nodes, L, batch)
+    out = {}
+    for kname, kind, fn, plain_fn, err, aerr, nbytes, ops in (
+            ('pcr_factor_levels', 'factor',
+             lambda: pk.pcr_factor_levels(Dm, E, F),
+             lambda: pk.pcr_factor_levels_plain(Dm, E, F), ferr, fabs,
+             f_bytes, f_ops),
+            ('pcr_downsweep', 'downsweep', lambda: pk.pcr_downsweep(A, Bm, r),
+             lambda: pk.pcr_downsweep_plain(A, Bm, r), serr, sabs, s_bytes,
+             s_ops)):
+        plan = pk.launch_plan(kind, batch, D, B_BORDER, nodes, dtype)
+        ms, host_ms = device_ms(fn)
+        cold = cold_ms(fn, flush)
+        call_ms = timed(fn, 50)
+        plain_ms = timed(plain_fn, 5, 1) if plain else None
+        bms, by = bound(nbytes, ops, name, tag)
+        out[kname] = dict(
+            dtype=tag, batch=batch, nodes=nodes, max_abs_err=aerr,
+            max_rel_err=err, ms=ms, cold_ms=cold, call_ms=call_ms,
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            bytes=nbytes, flops=ops, grid=plan.blocks, cluster=plan.cluster,
+            threads=plan.threads, nodes_per_block=plan.nodes_per_block,
+            smem_bytes=plan.smem_bytes, scratch=plan.scratch)
+        log('kernel {} {}: grid={} blocks (cluster {} x {} instances, {} '
+            'threads, {} nodes each) smem={} B scratch={} values a block; '
+            'max_rel_err={:.3e} max_abs_err={:.3e}; ms warm={:.5f} '
+            'cold={:.5f} (a call in a host loop {:.5f}, host {:.2f} us a '
+            'call) plain_ms={} bound_us={:.2f} ({}; {:.1f} MB, {:.3f} '
+            'GFLOP) cold/bound={:.2f}'.format(
+                kname, where, plan.blocks, plan.cluster, batch, plan.threads,
+                plan.nodes_per_block, plan.smem_bytes, plan.scratch, err,
+                aerr, ms, cold, call_ms, host_ms * 1e3,
+                'not timed' if plain_ms is None else '{:.4f}'.format(
+                    plain_ms),
+                bms * 1e3, by, nbytes / 1e6, ops / 1e9, cold / bms))
+    return out
 
-        es = Dm.element_size()
-        n_dd = BATCH * D * D * NODES
-        n_db = BATCH * D * B_BORDER * NODES
-        f_bytes = es * (2 * n_dd + n_db + 2 * L * n_dd + n_dd + 2 * n_db)
-        s_bytes = es * (2 * L * n_dd + 2 * BATCH * D * NODES)
-        f_ops, s_ops = flop_counts(D, B_BORDER, NODES, L, BATCH)
-        # float64 outside the tensor cores runs at half the FP32 rate
-        rate = fl if tag == 'float32' else fl / 2
-        for kname, err, aerr, ms, plain, nbytes, ops in (
-                ('pcr_factor_levels', ferr, fabs, f_ms, f_plain, f_bytes,
-                 f_ops),
-                ('pcr_downsweep', serr, sabs, s_ms, s_plain, s_bytes,
-                 s_ops)):
-            t_bytes = nbytes / bw * 1e3
-            t_ops = ops / rate * 1e3
-            rec[kname][tag] = dict(
-                max_abs_err=aerr, max_rel_err=err, ms=ms, plain_ms=plain,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                bytes=nbytes, flops=ops, peak_variant=key)
-            log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e} '
-                'ms={:.5f} plain_ms={:.4f} bound_us={:.2f} ({}; {:.1f} MB, '
-                '{:.3f} GFLOP)'.format(
-                    kname, tag, err, aerr, ms, plain,
-                    max(t_bytes, t_ops) * 1e3, rec[kname][tag]['bound_by'],
-                    nbytes / 1e6, ops / 1e9))
+
+def check_kernels(pk, name):
+    """The PCR kernels against their plain versions at every shape of
+    PCR_SHAPES, both dtypes; returns {kernel: [records]}, the main
+    path's shape first."""
+    import torch
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
+    rec = {'pcr_factor_levels': [], 'pcr_downsweep': []}
+    for batch, nodes in PCR_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            main = (batch, nodes) == (BATCH, NODES)
+            for kname, r in check_pcr_shape(pk, name, dtype, batch, nodes,
+                                            flush, main).items():
+                rec[kname].append(r)
+    del flush
     return rec
 
 
@@ -272,10 +350,10 @@ def check_block_kernels(bk, name):
                         or err > TOL_BLOCK[tag]:
                     fail('{} {} d={} B={}: rel err {:.3e} > {:.0e}'.format(
                         kname, tag, d, nb, err, TOL_BLOCK[tag]))
-                ms = device_ms(lambda: kernel(*args))
+                ms = device_ms(lambda: kernel(*args))[0]
                 call_ms = timed(lambda: kernel(*args), 200)
                 plain_ms = timed(lambda: plain(*args), 20, 2)
-                library_ms = device_ms(lambda: library(*args))
+                library_ms = device_ms(lambda: library(*args))[0]
                 library_call_ms = timed(lambda: library(*args), 200)
                 nbytes = n_io * nb * d * d * A.element_size()
                 bms, by = bound(nbytes, nb * ops, name, tag)
@@ -503,8 +581,15 @@ def iteration_profile(pk, bk, label, lanes, iters, kkt_method,
     log('profile {}: counted launches per iteration: {}'.format(
         label, json.dumps(per_iter)))
     for e in top:
-        log('profile {} top: {:.3f} ms in {} launches of {}'.format(
-            label, e.self_device_time_total / 1e3, e.count, e.key[:90]))
+        log('profile {} top: {:.3f} ms in {} launches of {} ({:.2f} us '
+            'each)'.format(label, e.self_device_time_total / 1e3, e.count,
+                           e.key[:90], e.self_device_time_total / e.count))
+    for e in events:
+        if 'pcr_' in e.key:
+            log('profile {} pcr: {:.2f} us per launch in the solve, {} '
+                'launches of {}'.format(
+                    label, e.self_device_time_total / e.count, e.count,
+                    e.key[:90]))
 
 
 def phase(title, fn, *args):
@@ -528,7 +613,8 @@ KERNELS = (
 
 def kernel_records(rec, blocks, main_launches, scan_launches):
     """The JSON entries: the PCR kernels at the main path's shapes
-    (float32, as the path runs them), the block kernels at the scan
+    (float32, as the path runs them; ``ms`` L2-warm, ``cold_ms``
+    L2-cold, every measured shape beside), the block kernels at the scan
     path's per-node call (float64, d = 5, SCAN_LANES matrices) with
     every measured shape beside."""
     out = []
@@ -536,15 +622,22 @@ def kernel_records(rec, blocks, main_launches, scan_launches):
         entry = dict(name=kname, route='cuda', source=source,
                      replaces=replaces)
         if kname in rec:
-            f32, f64 = rec[kname]['float32'], rec[kname]['float64']
+            f32, f64 = (next(r for r in rec[kname] if r['dtype'] == tag
+                             and (r['batch'], r['nodes']) == (BATCH, NODES))
+                        for tag in ('float32', 'float64'))
             entry.update(
                 launches=main_launches[kname],
-                max_abs_err=f32['max_abs_err'],
-                max_rel_err=f32['max_rel_err'], ms=f32['ms'],
-                plain_ms=f32['plain_ms'], bound_ms=f32['bound_ms'],
-                bound_by=f32['bound_by'], library_ms=None,
+                max_abs_err=max(r['max_abs_err'] for r in rec[kname]),
+                max_rel_err=max(r['max_rel_err'] for r in rec[kname]),
+                ms=f32['ms'], cold_ms=f32['cold_ms'],
+                call_ms=f32['call_ms'], host_ms=f32['host_ms'],
+                plain_ms=f32['plain_ms'],
+                bound_ms=f32['bound_ms'], bound_by=f32['bound_by'],
+                library_ms=None, grid=f32['grid'], cluster=f32['cluster'],
+                smem_bytes=f32['smem_bytes'],
                 f64_max_abs_err=f64['max_abs_err'], f64_ms=f64['ms'],
-                f64_plain_ms=f64['plain_ms'], f64_bound_ms=f64['bound_ms'])
+                f64_cold_ms=f64['cold_ms'], f64_plain_ms=f64['plain_ms'],
+                f64_bound_ms=f64['bound_ms'], shapes=rec[kname])
         else:
             shapes = blocks[kname]
             main = next(r for r in shapes if r['dtype'] == 'float64'

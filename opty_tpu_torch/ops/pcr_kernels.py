@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for the PCR factorization, their plain
-PyTorch versions and their launch counters.
+PyTorch versions, their launch plan and their launch counters.
 
 The counterpart of opty_tpu/ops/pallas_pcr.py.  Two kernels, both in
 csrc/pcr.cu, built for Hopper (sm_90a) with nvcc at first use and
@@ -7,17 +7,26 @@ loaded through ctypes (ops/cuda_build.py):
 
 * ``pcr_factor_levels`` replaces ``_factor_kernel`` (reached through
   ``pcr_factor_fused``): every PCR level of the bordered
-  block-tridiagonal system in one launch, one thread block per
-  instance.  Bound on an H100 by device memory: it writes L levels of
-  two d x d multipliers per node (28.9 MB at the main path's
-  B = 32, d = 5, b = 4, N = 501, float32) for ~0.3 GFLOP.  The level
-  state ping-pongs through a per-instance scratch that stays in L2;
-  nothing else is re-read from device memory.
+  block-tridiagonal system in one launch.  Bound on an H100 by device
+  memory: it writes L levels of two d x d multipliers per node plus the
+  final inverse and border columns (37.5 MB at the main path's
+  B = 32, d = 5, b = 4, N = 501, float32) for ~0.3 GFLOP.
 * ``pcr_downsweep`` replaces ``_downsweep_kernel`` (reached through
   ``pcr_downsweep_fused``): r <- r - A_l r_{k-s} - B_l r_{k+s} through
   every stored level.  Bound by reading the stored levels (28.9 MB at
-  the main path); r stays in shared memory across the levels and is
-  written back once.
+  the main path).
+
+Both run one instance on a thread block cluster (``launch_plan``): the
+node axis is split over C blocks so that the main path's 32 instances
+cover the card, and neighbours in other blocks are read from their
+shared memory.  The factor runs a thread per node and keeps its level
+state in shared memory, or, for an instance too large for one cluster's
+shared memory, in a global scratch; the downsweep runs a thread per
+(node, row) that loads the next level into registers while this one
+computes, each thread looping where a block owns more pairs than
+threads.  Both need sm_90 clusters.  The factor takes any N; the
+downsweep's r must fit a cluster's shared memory (2 d values a node:
+d = 5, float32, N up to 92,976), beyond which it raises ValueError.
 
 Unlike the Pallas kernels, neither pads the node axis: outputs keep the
 caller's N.  A tensor on the CPU goes to the plain version
@@ -28,6 +37,8 @@ wrapper raises.  Each wrapper counts its kernel launches in
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,12 +47,17 @@ from .lanes import block_inv_nl, matmul_nl, matvec_nl, transpose_nl
 from .tridiag import _down, _up, num_levels
 
 __all__ = ['pcr_factor_levels', 'pcr_downsweep', 'pcr_factor_levels_plain',
-           'pcr_downsweep_plain', 'build_kernels', 'reset_launch_counts',
-           'SUPPORTED_D', 'MAX_B']
+           'pcr_downsweep_plain', 'launch_plan', 'LaunchPlan',
+           'build_kernels', 'reset_launch_counts', 'SUPPORTED_D', 'MAX_B']
 
 SUPPORTED_D = (3, 5)      # block sizes instantiated in csrc/pcr.cu
 MAX_B = 8                 # widest border the kernels take
-_MAX_SMEM = 227 * 1024    # dynamic shared memory a block may use (H100)
+MAX_SMEM = 227 * 1024     # dynamic shared memory a block may use (H100)
+MAX_FACTOR_THREADS = 256  # the kernels' __launch_bounds__ (csrc/pcr.cu)
+MAX_SWEEP_THREADS = 1024
+FILL_BLOCKS = 256         # about two blocks for each of the H100's 132 SMs
+PORTABLE_CLUSTER = 8      # larger clusters need the non-portable attribute
+MAX_CLUSTER = 16          # the most an H100 schedules
 
 factor_launches = 0
 downsweep_launches = 0
@@ -94,11 +110,98 @@ def pcr_downsweep_plain(A, B, r):
     return r
 
 
+# ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+class LaunchPlan(NamedTuple):
+    cluster: int          # C blocks per instance (a thread block cluster)
+    nodes_per_block: int  # block r owns nodes [r * npb, min((r+1) * npb, N))
+    threads: int          # threads per block: the factor's one per node,
+                          # the downsweep's one per (node, row), each
+                          # looping where the block owns more
+    smem_bytes: int       # dynamic shared memory per block
+    blocks: int           # the grid: batch * cluster
+    scratch: int          # the factor's state values per block in a global
+                          # scratch (0: the state lies in shared memory)
+
+
+def _state_values(d, b, npb):
+    """The factor's state per block: [D | Lb | Ub | F] ping-pong and two
+    buffers of inverses (csrc/pcr.cu)."""
+    return (2 * (3 * d * d + d * b) + 2 * d * d) * npb
+
+
+def _split(N, cluster):
+    """(C, npb): ``cluster`` halved while a block would own no node."""
+    C = cluster
+    while C > 1 and -(-N // C) * (C - 1) >= N:
+        C //= 2
+    return C, -(-N // C)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(kernel, batch, d, b, N, dtype):
+    """How ``kernel`` ('factor' or 'downsweep') runs ``batch`` instances
+    of (d, b, N) in ``dtype``.
+
+    C, the cluster size, starts at the smallest power of two that gives
+    at least FILL_BLOCKS blocks (at most PORTABLE_CLUSTER), and shrinks
+    while a block would own no node.  The factor's C grows until its
+    share of the state fits half of MAX_SMEM, so that two blocks share
+    an SM and the card holds every cluster at once (or, where no
+    portable cluster does that, all of MAX_SMEM at up to MAX_CLUSTER);
+    where none fits, the state goes to a global scratch at the first C.
+    The downsweep's C grows, within the portable sizes, until each
+    (node, row) has a thread of its own, then, up to MAX_CLUSTER, until
+    r fits MAX_SMEM; ValueError where it does not.  Memoised (the plan
+    is an immutable tuple): the main path plans thousands of launches
+    of a few shapes.
+    """
+    if kernel not in ('factor', 'downsweep'):
+        raise ValueError('launch_plan: unknown kernel {!r}'.format(kernel))
+    es = dtype.itemsize
+    want = 1
+    while want < PORTABLE_CLUSTER and batch * want < FILL_BLOCKS:
+        want *= 2
+    if kernel == 'factor':
+        for top, smem_limit in ((PORTABLE_CLUSTER, MAX_SMEM // 2),
+                                (MAX_CLUSTER, MAX_SMEM)):
+            cluster = want
+            while cluster <= top:
+                C, npb = _split(N, cluster)
+                smem = _state_values(d, b, npb) * es
+                if smem <= smem_limit:
+                    threads = min(MAX_FACTOR_THREADS, -(-npb // 32) * 32)
+                    return LaunchPlan(C, npb, threads, smem, batch * C, 0)
+                cluster *= 2
+        C, npb = _split(N, want)
+        threads = min(MAX_FACTOR_THREADS, -(-npb // 32) * 32)
+        return LaunchPlan(C, npb, threads, 0, batch * C,
+                          _state_values(d, b, npb))
+    cluster = want
+    while cluster < PORTABLE_CLUSTER \
+            and d * _split(N, cluster)[1] > MAX_SWEEP_THREADS:
+        cluster *= 2
+    while True:
+        C, npb = _split(N, cluster)
+        smem = 2 * d * npb * es                  # r ping-pong
+        if smem <= MAX_SMEM:
+            threads = min(MAX_SWEEP_THREADS, -(-d * npb // 32) * 32)
+            return LaunchPlan(C, npb, threads, smem, batch * C, 0)
+        if cluster >= MAX_CLUSTER:
+            raise ValueError(
+                'pcr downsweep: r of N={} nodes of d={} in {} needs {} bytes '
+                'of shared memory a block on a cluster of {} blocks (limit '
+                '{})'.format(N, d, dtype, smem, MAX_CLUSTER, MAX_SMEM))
+        cluster *= 2
+
+
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
                for name, args in (
-                   ('pcr_factor_levels', [_VP] * 9 + [_CI] * 5 + [_VP]),
-                   ('pcr_downsweep', [_VP] * 4 + [_CI] * 4 + [_VP]))}
+                   ('pcr_factor_levels', [_VP] * 9 + [_CI] * 9 + [_VP]),
+                   ('pcr_downsweep', [_VP] * 4 + [_CI] * 8 + [_VP]))}
 
 
 def _check_dims(name, d, b, N):
@@ -133,6 +236,7 @@ def pcr_factor_levels(D, E, F):
                         ((nbatch, d, d, N), (nbatch, d, d, N),
                          (nbatch, d, b, N)))
     _check_dims('pcr_factor_levels', d, b, N)
+    plan = launch_plan('factor', nbatch, d, b, N, D.dtype)
     L = num_levels(N)
     new = lambda *shape: torch.empty(shape, dtype=D.dtype, device=D.device)
     A = new(nbatch, L, d, d, N)
@@ -140,12 +244,15 @@ def pcr_factor_levels(D, E, F):
     Dinv = new(nbatch, d, d, N)
     Fp = new(nbatch, d, b, N)
     Z = new(nbatch, d, b, N)
-    scratch = new(nbatch, 2 * (3 * d * d + d * b) + d * d, N)
+    scratch = new(nbatch, plan.cluster, plan.scratch) if plan.scratch \
+        else None
     fn = getattr(load('pcr', _SIGNATURES), 'pcr_factor_levels_' + suffix)
     launch('pcr_factor_levels', fn,
            (D.data_ptr(), E.data_ptr(), F.data_ptr(), A.data_ptr(),
             B.data_ptr(), Dinv.data_ptr(), Fp.data_ptr(), Z.data_ptr(),
-            scratch.data_ptr(), nbatch, d, b, N, L), D.device)
+            None if scratch is None else scratch.data_ptr(), nbatch, d, b,
+            N, L, plan.cluster, plan.nodes_per_block, plan.threads,
+            plan.smem_bytes), D.device)
     global factor_launches
     factor_launches += 1
     return A, B, Dinv, Fp, Z
@@ -163,14 +270,13 @@ def pcr_downsweep(A, B, r):
                         ((nbatch, L, d, d, N), (nbatch, L, d, d, N),
                          (nbatch, d, N)))
     _check_dims('pcr_downsweep', d, 0, N)
-    smem = 2 * d * N * r.element_size()
-    if smem > _MAX_SMEM:
-        raise ValueError('pcr_downsweep: r needs {} bytes of shared memory '
-                         '(limit {})'.format(smem, _MAX_SMEM))
+    plan = launch_plan('downsweep', nbatch, d, 0, N, r.dtype)
     out = torch.empty_like(r)
     fn = getattr(load('pcr', _SIGNATURES), 'pcr_downsweep_' + suffix)
-    launch('pcr_downsweep', fn, (A.data_ptr(), B.data_ptr(), r.data_ptr(),
-                                 out.data_ptr(), nbatch, d, N, L), r.device)
+    launch('pcr_downsweep', fn,
+           (A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(), nbatch,
+            d, N, L, plan.cluster, plan.nodes_per_block, plan.threads,
+            plan.smem_bytes), r.device)
     global downsweep_launches
     downsweep_launches += 1
     return out

@@ -15,7 +15,13 @@ from opty_tpu_torch.ops import tridiag
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(5, 4, 501, 32), (3, 0, 40, 4)]
+# (d, b, N, B).  The kernels split each instance's nodes over a cluster
+# of blocks (pk.launch_plan), so neighbours k +- s cross block
+# boundaries: besides the main path's shape, N not a multiple of the
+# cluster, N below the cluster the batch alone would ask for, N = 2, and
+# more clusters than the card holds at once.
+SHAPES = [(5, 4, 501, 32), (3, 0, 40, 4), (5, 4, 37, 8), (5, 4, 3, 1),
+          (5, 4, 2, 1), (3, 2, 101, 3), (5, 4, 501, 200)]
 # same operation order on both sides (nvcc -fmad=false); float32 PCR
 # amplifies roundoff across the levels (tests/test_pallas_pcr.py's
 # tolerance for two float32 versions)
@@ -67,11 +73,14 @@ def test_kernels_match_plain(card, d, b, N, B, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_batched_equals_single(card, dtype):
-    D, E, F, r = _system(5, 5, 4, 200, dtype, card, seed=1)
+@pytest.mark.parametrize('nbatch,N', [(5, 200), (3, 37), (200, 501)])
+def test_batched_equals_single(card, nbatch, N, dtype):
+    """Each instance alone runs on another cluster size than in the
+    batch (pk.launch_plan), with the same result."""
+    D, E, F, r = _system(nbatch, 5, 4, N, dtype, card, seed=1)
     A, B, Dinv, Fp, Z = pk.pcr_factor_levels(D, E, F)
     swept = pk.pcr_downsweep(A, B, r)
-    for i in (0, 4):
+    for i in (0, nbatch - 1):
         one = pk.pcr_factor_levels(D[i:i + 1], E[i:i + 1], F[i:i + 1])
         for g, w in zip((A, B, Dinv, Fp, Z), one):
             assert torch.equal(g[i:i + 1], w)
@@ -89,6 +98,83 @@ def test_launch_counters_move(card):
     # the plain versions are not launches
     pk.pcr_factor_levels_plain(D, E, F)
     assert pk.factor_launches == 1
+
+
+def test_one_launch_per_call_at_any_batch(card):
+    """More clusters than the card holds at once still take one launch
+    each, and the plan's grid covers the batch."""
+    D, E, F, r = _system(200, 5, 4, 501, torch.float32, card)
+    plan = pk.launch_plan('factor', 200, 5, 4, 501, torch.float32)
+    assert plan.blocks == 200 * plan.cluster > 132
+    pk.reset_launch_counts()
+    A, B, _, _, _ = pk.pcr_factor_levels(D, E, F)
+    pk.pcr_downsweep(A, B, r)
+    torch.cuda.synchronize()
+    assert (pk.factor_launches, pk.downsweep_launches) == (1, 1)
+
+
+# Instances beyond one cluster's shared memory: the factor's state in
+# its global scratch (d = 5, b = 4 from N = 3,873 in float32 and
+# N = 1,937 in float64; d = 3, b = 2 from N = 11,057), and the
+# downsweep's threads looping over more (node, row) pairs than a block
+# has threads; and the largest float32 factor whose state a cluster of
+# 16 blocks holds in shared memory.
+LARGE = [(5, 4, 4000, 2, torch.float32), (5, 4, 2900, 2, torch.float64),
+         (3, 2, 12000, 1, torch.float32), (5, 4, 3872, 1, torch.float32)]
+
+
+@pytest.mark.parametrize('d,b,N,B,dtype', LARGE)
+def test_large_instances_match_plain(card, d, b, N, B, dtype):
+    D, E, F, r = _system(B, d, b, N, dtype, card)
+    got = pk.pcr_factor_levels(D, E, F)
+    want = pk.pcr_factor_levels_plain(D, E, F)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w)
+    swept = pk.pcr_downsweep(got[0], got[1], r)
+    assert _rel(swept, pk.pcr_downsweep_plain(got[0], got[1], r)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_downsweep_at_its_reach(card, dtype):
+    """r filling the shared memory of a cluster of 16 blocks (d = 5),
+    through levels made from a seed."""
+    N = pk.MAX_CLUSTER * (pk.MAX_SMEM // (2 * 5 * dtype.itemsize))
+    plan = pk.launch_plan('downsweep', 1, 5, 0, N, dtype)
+    assert plan.cluster == pk.MAX_CLUSTER
+    L = tridiag.num_levels(N)
+    gen = torch.Generator(device=card).manual_seed(3)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=card,
+                                      dtype=dtype)
+    A, B = 0.05 * draw(1, L, 5, 5, N), 0.05 * draw(1, L, 5, 5, N)
+    r = draw(1, 5, N)
+    assert _rel(pk.pcr_downsweep(A, B, r), pk.pcr_downsweep_plain(A, B, r)) \
+        <= TOL[dtype]
+
+
+def test_refused_launch_raises(card):
+    """A launch that CUDA refuses (more dynamic shared memory than a
+    block may have) is returned by the C entry, raised by the launch,
+    and leaves nothing for the next launch to report.  A plan that
+    would leave a node unowned or asks for a cluster above 16 blocks is
+    refused by the C entry itself, before any launch."""
+    from opty_tpu_torch.ops.cuda_build import launch, load
+    D, E, F, r = _system(1, 5, 4, 2, torch.float32, card)
+    A, B, _, _, _ = pk.pcr_factor_levels(D, E, F)
+    fn = load('pcr', pk._SIGNATURES).pcr_downsweep_f32
+    out = torch.empty_like(r)
+    args = (A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(), 1, 5,
+            2, 1)
+    for cluster, npb, threads, smem in ((1, 2, 32, 300 * 1024),
+                                        (1, 1, 32, 1024),
+                                        (32, 1, 32, 1024)):
+        with pytest.raises(RuntimeError, match='cudaError'):
+            launch('pcr_downsweep', fn, args + (cluster, npb, threads, smem),
+                   card)
+    torch.cuda.synchronize()
+    assert _rel(pk.pcr_downsweep(A, B, r), pk.pcr_downsweep_plain(A, B, r)) \
+        <= TOL[torch.float32]
 
 
 def test_wrapper_refuses_what_the_build_lacks(card):

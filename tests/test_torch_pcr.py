@@ -160,3 +160,81 @@ def test_wrappers_reject_bad_input():
         pcr_kernels.pcr_factor_levels(D[0], D[0], D[0])
     with pytest.raises(ValueError):
         pcr_kernels.pcr_downsweep(D, D, D[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan (pure Python: checked here, run on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('N', [2, 3, 40, 200, 501, 4000])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d', pcr_kernels.SUPPORTED_D)
+@pytest.mark.parametrize('kernel', ['factor', 'downsweep'])
+def test_launch_plan(kernel, d, dtype, N):
+    """Every shape the wrappers take has a plan: every node owned by
+    exactly one block, shared memory within a block's limit, a cluster
+    the card can launch, threads within the kernel's bound and no warp
+    without a node."""
+    pk = pcr_kernels
+    most = pk.MAX_FACTOR_THREADS if kernel == 'factor' \
+        else pk.MAX_SWEEP_THREADS
+    for batch in (1, 32, 200):
+        for b in ((0, 4, pk.MAX_B) if kernel == 'factor' else (0,)):
+            plan = pk.launch_plan(kernel, batch, d, b, N, dtype)
+            C, npb = plan.cluster, plan.nodes_per_block
+            assert C in (1, 2, 4, 8, 16) and C <= pk.MAX_CLUSTER
+            owned = [k for rank in range(C)
+                     for k in range(rank * npb, min((rank + 1) * npb, N))]
+            assert owned == list(range(N))          # each node once
+            assert (C - 1) * npb < N                # no block idle
+            assert 0 <= plan.smem_bytes <= pk.MAX_SMEM
+            assert plan.threads % 32 == 0 and 32 <= plan.threads <= most
+            work = npb if kernel == 'factor' else d * npb
+            assert plan.threads < work + 32          # no idle warp
+            assert plan.blocks == batch * C
+            # the state lies in shared memory or in the scratch
+            assert (plan.scratch == 0) == (plan.smem_bytes > 0)
+            assert kernel == 'factor' or plan.scratch == 0
+
+
+def test_launch_plan_covers_the_card_on_the_main_path():
+    """The main path's 32 lanes (N = 501, d = 5, b = 4) run at least 96
+    blocks per launch in both dtypes, one cluster per instance, the
+    state in shared memory, and the float32 factor leaves room for two
+    blocks on an SM.  The plan is memoised."""
+    for kernel in ('factor', 'downsweep'):
+        for dtype in (torch.float32, torch.float64):
+            plan = pcr_kernels.launch_plan(kernel, 32, 5, 4, 501, dtype)
+            assert plan.blocks >= 96 and plan.cluster > 1
+            assert plan.scratch == 0
+    plan = pcr_kernels.launch_plan('factor', 32, 5, 4, 501, torch.float32)
+    assert 2 * plan.smem_bytes <= pcr_kernels.MAX_SMEM
+    assert pcr_kernels.launch_plan('factor', 32, 5, 4, 501,
+                                   torch.float32) is plan
+    with pytest.raises(ValueError, match='unknown kernel'):
+        pcr_kernels.launch_plan('solve', 1, 5, 4, 501, torch.float32)
+
+
+def test_launch_plan_reach():
+    """The factor takes any N: its state leaves shared memory for a
+    global scratch only where a cluster of MAX_CLUSTER blocks cannot
+    hold it (d = 5, b = 4: N = 3,872 in float32).  The downsweep takes
+    MAX_CLUSTER times what one block's shared memory holds of r, and
+    refuses beyond."""
+    pk = pcr_kernels
+    f32, f64 = torch.float32, torch.float64
+    edge = pk.launch_plan('factor', 1, 5, 4, 3872, f32)
+    assert edge.scratch == 0 and edge.cluster == pk.MAX_CLUSTER
+    for N, dtype in ((3873, f32), (1937, f64), (4000, f32), (10 ** 6, f64)):
+        plan = pk.launch_plan('factor', 1, 5, 4, N, dtype)
+        assert plan.scratch > 0 and plan.smem_bytes == 0
+        assert plan.cluster * plan.nodes_per_block >= N
+    for d, dtype in ((5, f32), (5, f64), (3, f32)):
+        one_block = pk.MAX_SMEM // (2 * d * dtype.itemsize)
+        plan = pk.launch_plan('downsweep', 1, d, 0, one_block, dtype)
+        assert plan.threads == pk.MAX_SWEEP_THREADS < d * plan.nodes_per_block
+        top = pk.MAX_CLUSTER * one_block
+        plan = pk.launch_plan('downsweep', 1, d, 0, top, dtype)
+        assert plan.cluster == pk.MAX_CLUSTER
+        with pytest.raises(ValueError, match='shared memory'):
+            pk.launch_plan('downsweep', 1, d, 0, top + pk.MAX_CLUSTER, dtype)
