@@ -15,22 +15,26 @@ Phases, each reported on its own line(s) with its wall time:
    at N = 101 and at one instance of N = 4,000 (the factor's state in
    its global scratch), each with its launch plan (grid, cluster,
    shared memory), L2-warm and L2-cold, and the host's time to make a
-   call; the block inverse and product at the
-   scan path's per-node call (B = 8 and 32 lanes, d = 5), at a whole
-   node axis (B = 16,032) and at the border's d = 4, beside
-   torch.linalg.inv_ex and torch.bmm as yardsticks;
+   call; the scan factorization and solve kernels at B = 32, 8 and 128
+   lanes (N = 501) and at B = 32, N = 101, L2-warm and L2-cold, with
+   their time per node; an empty kernel's launch; the block inverse and
+   product at 8 and 32 matrices (d = 5), at a whole node axis
+   (16,032) and at the border's d = 4, beside torch.linalg.inv_ex and
+   torch.bmm as yardsticks;
 4. reference: a small solve (N = 101, float64 factorization) on the card
    against the same solve on the CPU (the plain versions), once with
-   kkt_method='cr' (4) and once with 'scan' (4b);
+   kkt_method='cr' (4) and once with 'scan' (4b, through the scan
+   kernels, by their counters);
 5. main path: the pendulum swing-up at N = 501 through
    ``swing_up_problem`` -> ``set_solver_options`` -> ``solve_queue``,
    64 instances on 32 refilled lanes, kkt_method='cr', launch counters
    reset just before and read just after;
-5b. scan path: the first 8 instances of the same queue in one
-   ``solve_batch`` with kkt_method='scan' and a float64 factorization,
-   counters reset just before and read just after;
-6. profile: a few iterations of each path, once counting host syncs and
-   once under torch.profiler (device busy time, kernel launches).
+5b. scan path: the same queue, the same way, with kkt_method='scan', a
+   float64 factorization and 1 refinement round; counters reset just
+   before and read just after; its wall beside phase 5's;
+6. profile: a few iterations of each path at 32 lanes, once counting
+   host syncs and once under torch.profiler (device busy time, kernel
+   launches, the per-launch time of each hand-written kernel).
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -49,12 +53,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # main-path shapes of the KKT factorization (pendulum, bench queue)
 BATCH, D, B_BORDER, NODES = 32, 5, 4, 501
-# the scan path's lanes, and the block kernels' shapes (d, batch): the
-# per-node call over the scan path's lanes and over the main path's,
-# a whole node axis of the main path, the border's d = 4
-SCAN_LANES = 8
-BLOCK_SHAPES = ((D, SCAN_LANES), (D, BATCH), (D, BATCH * NODES),
-                (B_BORDER, BATCH))
+# the block kernels' shapes (d, batch): 8 and 32 matrices, a whole node
+# axis of the main path, the border's d = 4 (the cr path's call)
+BLOCK_SHAPES = ((D, 8), (D, BATCH), (D, BATCH * NODES), (B_BORDER, BATCH))
+# the scan kernels' shapes (lanes, N): the scan path's first
+SCAN_SHAPES = ((BATCH, NODES), (8, NODES), (128, NODES), (BATCH, 101))
 # the PCR kernels' shapes (batch, N) at d = 5, b = 4: the main path's
 # first, then fewer and more lanes, the reference solve's N, and an
 # instance beyond a cluster's shared memory
@@ -77,6 +80,12 @@ TOL_LEVEL0_F32 = 1e-5
 # order: 0 expected on finite inputs, these bounds absorb any order
 # difference
 TOL_BLOCK = {'float64': 1e-12, 'float32': 1e-5}
+# the scan kernels against their plain versions, max |diff| / max |ref|
+# per output: the kernel inverts by Gauss-Jordan, the plain version by
+# elimination and back substitution, and the plain solve's products go
+# through cuBLAS, so the two agree to round-off amplified by the
+# systems' condition (scan_system keeps it small)
+TOL_SCAN = {'float64': 1e-11, 'float32': 1e-4}
 
 
 def log(*args):
@@ -372,9 +381,119 @@ def check_block_kernels(bk, name):
     return rec
 
 
-def reference_solve(kkt_method):
+def scan_system(dtype, batch, nodes, d=D, b=B_BORDER, seed=0):
+    """Lanes-first inputs of the scan kernels in random_system's style,
+    scaled so that every Schur pivot stays well conditioned: D = 4 I
+    plus noise and E of norm about 1 / 2, F = 0.1 noise, and a border
+    Kbb about -4 I that the eliminated terms push further from zero."""
+    import torch
+    rng = np.random.default_rng(seed)
+    s = 0.5 / np.sqrt(d)
+    Dm = s * rng.standard_normal((batch, nodes, d, d)) + 4.0 * np.eye(d)
+    E = s * rng.standard_normal((batch, nodes, d, d))
+    E[:, 0] = 0.0
+    F = 0.1 * rng.standard_normal((batch, nodes, d, b))
+    Kbb = 0.5 / np.sqrt(max(b, 1)) * rng.standard_normal((batch, b, b)) \
+        - 4.0 * np.eye(b)
+    r = rng.standard_normal((batch, nodes, d))
+    rb = rng.standard_normal((batch, b))
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+    return to(Dm), to(E), to(F), to(Kbb), to(r), to(rb)
+
+
+def scan_counts(d, b, N, batch, es):
+    """(bytes, FLOPs) of scan_factor and of scan_solve: each input read
+    once, each output written once; the factor's inverse counted as the
+    Gauss-Jordan elimination it runs (4 d^3 - 2 d^2)."""
+    mm = lambda m, n, q: m * n * (2 * q - 1)        # (m x q) @ (q x n)
+    gj = lambda n: 4 * n ** 3 - 2 * n ** 2
+    f_node = (2 * mm(d, d, d) + d * d + gj(d) + mm(d, b, d) + d * b
+              + mm(d, b, d) + mm(b, b, d) + b * b)
+    s_node = (2 * (mm(d, 1, d) + d) + mm(d, 1, d) + mm(b, 1, d) + b
+              + mm(d, 1, b) + d + mm(d, 1, d))
+    f_ops = batch * (N * f_node + (gj(b) + b * b if b else 0))
+    s_ops = batch * (N * s_node + mm(b, 1, b) + b)
+    f_bytes = es * batch * (2 * N * (2 * d * d + d * b) + 2 * b * b)
+    s_bytes = es * batch * (N * (3 * d * d + d * b + 2 * d) + b * b + 2 * b)
+    return (f_bytes, f_ops), (s_bytes, s_ops)
+
+
+def check_scan_kernels(sk, name):
+    """The scan factorization and solve kernels against their plain
+    versions at every shape of SCAN_SHAPES, both dtypes (the solve on
+    the kernel's factorization on both sides); timed L2-warm
+    (``device_ms``) and L2-cold (``cold_ms``), the plain versions at the
+    scan path's shape.  Returns {kernel: [records]}."""
+    import torch
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
+    rec = {'scan_factor': [], 'scan_solve': []}
+    for batch, nodes in SCAN_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).split('.')[-1]
+            where = '{} B={} N={}'.format(tag, batch, nodes)
+            Dm, E, F, Kbb, r, rb = scan_system(dtype, batch, nodes)
+            fac = sk.scan_factor(Dm, E, F, Kbb)
+            want = sk.scan_factor_plain(Dm, E, F, Kbb)
+            sol = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+            sol_want = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
+            torch.cuda.synchronize()
+            main = (batch, nodes) == (BATCH, NODES)
+            counts = scan_counts(D, B_BORDER, nodes, batch,
+                                 Dm.element_size())
+            for kname, got, ref, fn, plain_fn, (nbytes, ops) in (
+                    ('scan_factor', fac, want,
+                     lambda: sk.scan_factor(Dm, E, F, Kbb),
+                     lambda: sk.scan_factor_plain(Dm, E, F, Kbb), counts[0]),
+                    ('scan_solve', sol, sol_want,
+                     lambda: sk.scan_solve(*fac[:3], E, fac[3], r, rb),
+                     lambda: sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb),
+                     counts[1])):
+                errs = [rel_err(g, w) for g, w in zip(got, ref)]
+                aerr = max(e[0] for e in errs)
+                err = max(e[1] for e in errs)
+                if not all(torch.isfinite(g).all().item() for g in got) \
+                        or err > TOL_SCAN[tag]:
+                    fail('{} {}: rel err {:.3e} > {:.0e}'.format(
+                        kname, where, err, TOL_SCAN[tag]))
+                ms = device_ms(fn)[0]
+                cold = cold_ms(fn, flush)
+                plain_ms = timed(plain_fn, 2, 1) if main else None
+                bms, by = bound(nbytes, ops, name, tag)
+                rec[kname].append(dict(
+                    dtype=tag, batch=batch, nodes=nodes, max_abs_err=aerr,
+                    max_rel_err=err, ms=ms, cold_ms=cold,
+                    us_per_node=cold / nodes * 1e3, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=ops))
+                log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e} '
+                    'ms warm={:.5f} cold={:.5f} ({:.4f} us a node) '
+                    'plain_ms={} bound_us={:.2f} ({}; {:.2f} MB, {:.4f} '
+                    'GFLOP) cold/bound={:.1f}'.format(
+                        kname, where, err, aerr, ms, cold,
+                        cold / nodes * 1e3,
+                        'not timed' if plain_ms is None
+                        else '{:.4f}'.format(plain_ms), bms * 1e3, by,
+                        nbytes / 1e6, ops / 1e9, cold / bms))
+    del flush
+    return rec
+
+
+def empty_kernel_ms(bk):
+    """Device time of an empty kernel's launch, back to back, and of a
+    call in a host loop: the floor any single launch pays."""
+    import torch
+    dev = torch.device('cuda')
+    ms, host_ms = device_ms(lambda: bk.empty_launch(dev), reps=200)
+    call_ms = timed(lambda: bk.empty_launch(dev), 200)
+    log('kernel empty_launch: ms={:.5f} (device, back to back) {:.5f} (a '
+        'call in a host loop; host {:.2f} us a call)'.format(
+            ms, call_ms, host_ms * 1e3))
+    return dict(ms=ms, call_ms=call_ms, host_ms=host_ms)
+
+
+def reference_solve(kkt_method, counters):
     """N = 101 swing-up, float64 factorization: the card (kernels)
-    against the CPU (plain versions)."""
+    against the CPU (plain versions).  Returns the card solve's launch
+    counts (``counters``: the kernel modules)."""
     import torch
     from opty_tpu_torch.models import swing_up_problem
     out = {}
@@ -385,31 +504,42 @@ def reference_solve(kkt_method):
                                 factor_dtype=torch.float64,
                                 mu_strategy='monotone', use_soc=False)
         x0 = np.random.default_rng(29).normal(size=prob.num_free)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
         out[dev] = prob.solve(x0)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            launches = launch_counts(*counters)
     (xg, ig), (xc, ic) = out['cuda'], out['cpu']
     rel = abs(ig['obj_val'] - ic['obj_val']) / abs(ic['obj_val'])
     dx = float(np.max(np.abs(xg - xc)))
     log('reference N=101 {}: card status={} iters={} obj={:.10g}; cpu '
-        'status={} iters={} obj={:.10g}; obj rel diff={:.2e} max|dx|={:.2e}'
-        .format(kkt_method, ig['status'], ig['iterations'], ig['obj_val'],
-                ic['status'], ic['iterations'], ic['obj_val'], rel, dx))
+        'status={} iters={} obj={:.10g}; obj rel diff={:.2e} max|dx|={:.2e}; '
+        'card launches={}'.format(
+            kkt_method, ig['status'], ig['iterations'], ig['obj_val'],
+            ic['status'], ic['iterations'], ic['obj_val'], rel, dx,
+            json.dumps(launches)))
     if ig['status'] not in (0, 1) or ig['status'] != ic['status'] \
             or ig['iterations'] != ic['iterations'] or rel > 1e-8 \
             or dx > 1e-6:
         fail('card and CPU {} solves disagree on the reference problem'
              .format(kkt_method))
+    return launches
 
 
-def launch_counts(pk, bk):
+def launch_counts(pk, bk, sk):
     return {'pcr_factor_levels': pk.factor_launches,
             'pcr_downsweep': pk.downsweep_launches,
             'block_inv': bk.inv_launches,
-            'block_matmul': bk.matmul_launches}
+            'block_matmul': bk.matmul_launches,
+            'scan_factor': sk.factor_launches,
+            'scan_solve': sk.solve_launches}
 
 
-def reset_counts(pk, bk):
+def reset_counts(pk, bk, sk):
     pk.reset_launch_counts()
     bk.reset_launch_counts()
+    sk.reset_launch_counts()
 
 
 def check_solutions(prob, x, ok, n):
@@ -429,108 +559,81 @@ def check_solutions(prob, x, ok, n):
     return worst
 
 
-def main_path(pk, bk):
+def queue_path(counters, label, kkt_method, factor_dtype, required,
+               forbidden=()):
+    """The first 64 rows of bench.py's queue (default_rng(7), N = 501)
+    through ``solve_queue`` on 32 refilled lanes, ``chunk_iters=20``,
+    ``max_iter=200``, monotone mu, no SOC; launch counters reset just
+    before and read just after.  Holds the queue to PERF.md's limits
+    (>= 60/64 converged, mean iterations <= 52, none retired for
+    restoration, converged solutions within 1e-6 of their constraints)
+    and fails unless every kernel of ``required`` was launched and none
+    of ``forbidden``.  Returns (launches, wall seconds, mean
+    iterations)."""
     import torch
     from opty_tpu_torch.models import swing_up_problem
     from opty_tpu_torch.nlp.status import RESTORATION_NOT_PORTED
     prob = swing_up_problem(num_nodes=NODES)          # the card by default
-    prob.set_solver_options(max_iter=200, chunk_iters=20, kkt_method='cr',
-                            use_soc=False, mu_strategy='monotone',
-                            factor_dtype=torch.float32)
+    prob.set_solver_options(max_iter=200, chunk_iters=20,
+                            kkt_method=kkt_method, use_soc=False,
+                            mu_strategy='monotone', factor_dtype=factor_dtype)
     queue = np.random.default_rng(7).standard_normal((64, prob.num_free))
     chunks = []
     torch.cuda.synchronize()
-    reset_counts(pk, bk)
+    reset_counts(*counters)
     t0 = time.time()
-    res = prob.solve_queue(queue, batch_size=32,
+    res = prob.solve_queue(queue, batch_size=BATCH,
                            progress=lambda d, n, dt: chunks.append(dt))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = launch_counts(pk, bk)
+    launches = launch_counts(*counters)
 
     status = np.asarray(res.status)
     iters = np.asarray(res.iterations)
     ok = (status == 0) | (status == 1)
     n_rest = int(np.sum(status == RESTORATION_NOT_PORTED))
-    log('main path: converged {}/64 (status 0/1), iterations mean={:.2f} '
-        'p50={} p90={} max={}, retired for restoration={}, wall_s={:.2f}, '
-        'chunks={}, launches={}'.format(
+    log('{}: kkt_method={} factor {}: converged {}/64 (status 0/1), '
+        'iterations mean={:.2f} p50={} p90={} max={}, retired for '
+        'restoration={}, wall_s={:.2f} ({:.3f} solves/s), chunks={}, '
+        'launches={}'.format(
+            label, kkt_method, str(factor_dtype).split('.')[-1],
             int(ok.sum()), float(iters.mean()),
             int(np.percentile(iters, 50)), int(np.percentile(iters, 90)),
-            int(iters.max()), n_rest, wall, len(chunks),
+            int(iters.max()), n_rest, wall, 64 / wall, len(chunks),
             json.dumps(launches)))
-    log('main path statuses: {}'.format(
-        json.dumps({int(s): int(np.sum(status == s))
-                    for s in np.unique(status)})))
+    log('{} statuses: {}'.format(label, json.dumps(
+        {int(s): int(np.sum(status == s)) for s in np.unique(status)})))
     worst = check_solutions(prob, np.asarray(res.x), ok, 64)
-    log('main path: worst constraint / boundary violation over '
-        'converged lanes = {:.3e}'.format(worst))
+    log('{}: worst constraint / boundary violation over converged lanes = '
+        '{:.3e}'.format(label, worst))
     if worst > 1e-6:
-        fail('converged solutions violate their constraints')
-    for kname in ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'):
+        fail('{}: converged solutions violate their constraints'.format(
+            label))
+    for kname in required:
         if launches[kname] == 0:
-            fail('{} was not launched on the main path'.format(kname))
+            fail('{} was not launched on the {}'.format(kname, label))
+    for kname in forbidden:
+        if launches[kname] != 0:
+            fail('{} was launched {} times on the {}'.format(
+                kname, launches[kname], label))
     if ok.sum() < 60:
-        fail('only {}/64 lanes converged'.format(int(ok.sum())))
+        fail('{}: only {}/64 lanes converged'.format(label, int(ok.sum())))
     if iters.mean() > 52:
-        fail('mean iterations {:.2f} > 52'.format(float(iters.mean())))
-    return launches
+        fail('{}: mean iterations {:.2f} > 52'.format(
+            label, float(iters.mean())))
+    if n_rest:
+        fail('{}: {} lanes retired for restoration'.format(label, n_rest))
+    return launches, wall, float(iters.mean())
 
 
-def scan_path(pk, bk):
-    """The first SCAN_LANES instances of the main path's queue in one
-    batch through the scan factorization, float64 factor."""
-    import torch
-    from opty_tpu_torch.models import swing_up_problem
-    prob = swing_up_problem(num_nodes=NODES)
-    prob.set_solver_options(max_iter=200, kkt_method='scan', use_soc=False,
-                            mu_strategy='monotone',
-                            factor_dtype=torch.float64)
-    free = np.random.default_rng(7).standard_normal(
-        (64, prob.num_free))[:SCAN_LANES]
-    torch.cuda.synchronize()
-    reset_counts(pk, bk)
-    t0 = time.time()
-    res = prob.solve_batch(free)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = launch_counts(pk, bk)
-
-    status = res.status.cpu().numpy()
-    iters = res.iterations.cpu().numpy()
-    ok = (status == 0) | (status == 1)
-    steps = int(iters.max())          # the batch runs until its last lane
-    log('scan path: converged {}/{} (status 0/1), iterations mean={:.2f} '
-        'p50={} max={}, wall_s={:.2f} ({:.1f} ms per iteration), '
-        'launches={} (per iteration: block_inv {:.1f}, block_matmul {:.1f})'
-        .format(int(ok.sum()), SCAN_LANES, float(iters.mean()),
-                int(np.percentile(iters, 50)), steps, wall,
-                wall / steps * 1e3, json.dumps(launches),
-                launches['block_inv'] / steps,
-                launches['block_matmul'] / steps))
-    log('scan path statuses: {}'.format(
-        json.dumps({int(s): int(np.sum(status == s))
-                    for s in np.unique(status)})))
-    worst = check_solutions(prob, res.x.cpu().numpy(), ok, SCAN_LANES)
-    log('scan path: worst constraint / boundary violation over '
-        'converged lanes = {:.3e}'.format(worst))
-    if worst > 1e-6:
-        fail('converged scan solutions violate their constraints')
-    for kname in ('block_inv', 'block_matmul'):
-        if launches[kname] == 0:
-            fail('{} was not launched on the scan path'.format(kname))
-    if ok.sum() < SCAN_LANES - 1:
-        fail('only {}/{} scan lanes converged'.format(int(ok.sum()),
-                                                      SCAN_LANES))
-    return launches
-
-
-def iteration_profile(pk, bk, label, lanes, iters, kkt_method,
+def iteration_profile(counters, label, lanes, iters, kkt_method,
                       factor_dtype):
     """Where an iteration's time goes: one cold batch of ``lanes`` lanes
     for ``iters`` iterations (the initialization included), once
     counting host syncs (torch's sync debug mode warns on each) and once
-    under torch.profiler, tracing the device only, for its busy time."""
+    under torch.profiler, tracing the device only, for its busy time.
+    Returns {kernel: device ms per launch in the solve} of the
+    hand-written kernels the profile saw."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -542,12 +645,12 @@ def iteration_profile(pk, bk, label, lanes, iters, kkt_method,
     free = np.random.default_rng(7).standard_normal((lanes, prob.num_free))
     prob.solve_batch(free)                       # warm caches and allocator
     torch.cuda.synchronize()
-    reset_counts(pk, bk)
+    reset_counts(*counters)
     t0 = time.time()
     prob.solve_batch(free)
     torch.cuda.synchronize()
     plain_wall = time.time() - t0
-    per_iter = {k: n / iters for k, n in launch_counts(pk, bk).items()}
+    per_iter = {k: n / iters for k, n in launch_counts(*counters).items()}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
@@ -584,12 +687,11 @@ def iteration_profile(pk, bk, label, lanes, iters, kkt_method,
         log('profile {} top: {:.3f} ms in {} launches of {} ({:.2f} us '
             'each)'.format(label, e.self_device_time_total / 1e3, e.count,
                            e.key[:90], e.self_device_time_total / e.count))
-    for e in events:
-        if 'pcr_' in e.key:
-            log('profile {} pcr: {:.2f} us per launch in the solve, {} '
-                'launches of {}'.format(
-                    label, e.self_device_time_total / e.count, e.count,
-                    e.key[:90]))
+    in_solve = in_solve_times(events)
+    for kname, ms in in_solve.items():
+        log('profile {} {}: {:.2f} us per launch in the solve'.format(
+            label, kname, ms * 1e3))
+    return in_solve
 
 
 def phase(title, fn, *args):
@@ -599,57 +701,92 @@ def phase(title, fn, *args):
     return out
 
 
+# (name, source, the TPU kernel it replaces, its device function)
 KERNELS = (
     ('pcr_factor_levels', 'opty_tpu_torch/csrc/pcr.cu',
-     'opty_tpu/ops/pallas_pcr.py:216'),
+     'opty_tpu/ops/pallas_pcr.py:216', 'pcr_factor_kernel'),
     ('pcr_downsweep', 'opty_tpu_torch/csrc/pcr.cu',
-     'opty_tpu/ops/pallas_pcr.py:250'),
+     'opty_tpu/ops/pallas_pcr.py:250', 'pcr_downsweep_kernel'),
     ('block_inv', 'opty_tpu_torch/csrc/blocks.cu',
-     'opty_tpu/ops/pallas_blocks.py:42'),
+     'opty_tpu/ops/pallas_blocks.py:42', 'block_inv_kernel'),
     ('block_matmul', 'opty_tpu_torch/csrc/blocks.cu',
-     'opty_tpu/ops/pallas_blocks.py:84'),
+     'opty_tpu/ops/pallas_blocks.py:84', 'block_matmul_kernel'),
+    ('scan_factor', 'opty_tpu_torch/csrc/scan.cu',
+     'opty_tpu/ops/pallas_blocks.py:42,84', 'scan_factor_kernel'),
+    ('scan_solve', 'opty_tpu_torch/csrc/scan.cu',
+     'opty_tpu/ops/pallas_blocks.py:42,84', 'scan_solve_kernel'),
 )
 
 
-def kernel_records(rec, blocks, main_launches, scan_launches):
-    """The JSON entries: the PCR kernels at the main path's shapes
-    (float32, as the path runs them; ``ms`` L2-warm, ``cold_ms``
-    L2-cold, every measured shape beside), the block kernels at the scan
-    path's per-node call (float64, d = 5, SCAN_LANES matrices) with
-    every measured shape beside."""
+def in_solve_times(events):
+    """{kernel: device ms per launch} over the profiler's events of the
+    hand-written kernels (every instantiation of a kernel together)."""
+    total, count = {}, {}
+    for e in events:
+        for kname, _, _, symbol in KERNELS:
+            if symbol + '<' in e.key:
+                total[kname] = total.get(kname, 0.0) \
+                    + e.self_device_time_total
+                count[kname] = count.get(kname, 0) + e.count
+    return {k: total[k] / count[k] / 1e3 for k in total}
+
+
+def pick(records, **where):
+    return next(r for r in records
+                if all(r[k] == v for k, v in where.items()))
+
+
+def kernel_records(pcr, scan, blocks, launches, in_solve):
+    """The JSON entries, each at the shape and dtype its path runs it:
+    the PCR kernels at the main path's B = 32, N = 501 in float32 (the
+    cr queue's launches; ``ms`` L2-warm, ``cold_ms`` L2-cold, float64
+    beside); block_inv at the cr path's border call (32 matrices of
+    d = 4, float32); block_matmul, on no solver path, at 8 matrices of
+    d = 5 in float64 (the scan path's per-node call before the scan
+    kernels); the scan kernels at the scan path's B = 32, N = 501 in
+    float64 (the scan queue's launches, float32 beside).  Every measured
+    shape is beside in ``shapes``; ``in_solve_ms`` is the profile's
+    time per launch."""
     out = []
-    for kname, source, replaces in KERNELS:
+    for kname, source, replaces, _ in KERNELS:
         entry = dict(name=kname, route='cuda', source=source,
                      replaces=replaces)
-        if kname in rec:
-            f32, f64 = (next(r for r in rec[kname] if r['dtype'] == tag
-                             and (r['batch'], r['nodes']) == (BATCH, NODES))
-                        for tag in ('float32', 'float64'))
+        if kname in pcr or kname in scan:
+            shapes = pcr.get(kname) or scan[kname]
+            path = 'cr' if kname in pcr else 'scan'
+            main, other = (pick(shapes, dtype=tag, batch=BATCH, nodes=NODES)
+                           for tag in (('float32', 'float64') if path == 'cr'
+                                       else ('float64', 'float32')))
             entry.update(
-                launches=main_launches[kname],
-                max_abs_err=max(r['max_abs_err'] for r in rec[kname]),
-                max_rel_err=max(r['max_rel_err'] for r in rec[kname]),
-                ms=f32['ms'], cold_ms=f32['cold_ms'],
-                call_ms=f32['call_ms'], host_ms=f32['host_ms'],
-                plain_ms=f32['plain_ms'],
-                bound_ms=f32['bound_ms'], bound_by=f32['bound_by'],
-                library_ms=None, grid=f32['grid'], cluster=f32['cluster'],
-                smem_bytes=f32['smem_bytes'],
-                f64_max_abs_err=f64['max_abs_err'], f64_ms=f64['ms'],
-                f64_cold_ms=f64['cold_ms'], f64_plain_ms=f64['plain_ms'],
-                f64_bound_ms=f64['bound_ms'], shapes=rec[kname])
-        else:
-            shapes = blocks[kname]
-            main = next(r for r in shapes if r['dtype'] == 'float64'
-                        and r['d'] == D and r['batch'] == SCAN_LANES)
-            entry.update(
-                launches=scan_launches[kname],
-                launches_main_path=main_launches[kname],
+                path=path, launches=launches[path][kname],
                 max_abs_err=max(r['max_abs_err'] for r in shapes),
                 max_rel_err=max(r['max_rel_err'] for r in shapes),
-                ms=main['ms'], plain_ms=main['plain_ms'],
-                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
-                library_ms=main['library_ms'], shapes=shapes)
+                dtype=main['dtype'], ms=main['ms'], cold_ms=main['cold_ms'],
+                in_solve_ms=in_solve[path].get(kname),
+                plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                bound_by=main['bound_by'], library_ms=None,
+                other_dtype=dict((k, other[k]) for k in (
+                    'dtype', 'ms', 'cold_ms', 'plain_ms', 'bound_ms',
+                    'max_abs_err')), shapes=shapes)
+            if path == 'scan':
+                entry.update(redesign_of=['block_inv', 'block_matmul'],
+                             us_per_node=main['us_per_node'])
+        else:
+            shapes = blocks[kname]
+            main = pick(shapes, dtype='float32', d=B_BORDER, batch=BATCH) \
+                if kname == 'block_inv' \
+                else pick(shapes, dtype='float64', d=D, batch=8)
+            entry.update(
+                path='cr' if kname == 'block_inv' else None,
+                launches=launches['cr'][kname],
+                launches_scan_path=launches['scan'][kname],
+                max_abs_err=max(r['max_abs_err'] for r in shapes),
+                max_rel_err=max(r['max_rel_err'] for r in shapes),
+                dtype=main['dtype'], d=main['d'], batch=main['batch'],
+                ms=main['ms'], in_solve_ms=in_solve['cr'].get(kname),
+                plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                bound_by=main['bound_by'], library_ms=main['library_ms'],
+                shapes=shapes)
         out.append(entry)
     return out
 
@@ -661,6 +798,8 @@ def main():
     sys.path.insert(0, HERE)
     from opty_tpu_torch.ops import block_kernels as bk
     from opty_tpu_torch.ops import pcr_kernels as pk
+    from opty_tpu_torch.ops import scan_kernels as sk
+    counters = (pk, bk, sk)
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -669,8 +808,8 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log('device: {} count={} torch={} cuda={}'.format(
-        name, count, torch.__version__, torch.version.cuda))
+    log('device: {} count={} torch={} cuda={} ({})'.format(
+        name, count, torch.__version__, torch.version.cuda, smi))
 
     # 2. build
     t0 = time.time()
@@ -684,25 +823,43 @@ def main():
                 log('ptxas {}: {}'.format(src, line.strip()))
 
     # 3. kernels against plain versions
-    rec = phase('3 pcr kernels', check_kernels, pk, name)
+    pcr = phase('3 pcr kernels', check_kernels, pk, name)
+    scan = phase('3 scan kernels', check_scan_kernels, sk, name)
+    phase('3 empty kernel', empty_kernel_ms, bk)
     blocks = phase('3 block kernels', check_block_kernels, bk, name)
 
     # 4. small reference solves, card against CPU
-    phase('4 reference cr', reference_solve, 'cr')
-    phase('4b reference scan', reference_solve, 'scan')
+    phase('4 reference cr', reference_solve, 'cr', counters)
+    ref = phase('4b reference scan', reference_solve, 'scan', counters)
+    if not (ref['scan_factor'] and ref['scan_solve']) \
+            or ref['block_inv'] or ref['block_matmul']:
+        fail('the N = 101 scan solve on the card did not run through the '
+             'scan kernels alone: {}'.format(json.dumps(ref)))
 
     # 5. the main path, 5b. the scan path
-    main_launches = phase('5 main path', main_path, pk, bk)
-    scan_launches = phase('5b scan path', scan_path, pk, bk)
+    cr_launches, cr_wall, cr_iters = phase(
+        '5 main path', queue_path, counters, 'main path', 'cr',
+        torch.float32, ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'))
+    scan_launches, scan_wall, scan_iters = phase(
+        '5b scan path', queue_path, counters, 'scan path', 'scan',
+        torch.float64, ('scan_factor', 'scan_solve'),
+        ('block_inv', 'block_matmul'))
+    log('queues of 64 on 32 lanes ({}): cr float32 factor + 6 rounds '
+        '{:.2f} s ({:.3f} solves/s, mean {:.2f} iterations); scan float64 '
+        'factor + 1 round {:.2f} s ({:.3f} solves/s, mean {:.2f} '
+        'iterations)'.format(smi, cr_wall, 64 / cr_wall, cr_iters,
+                             scan_wall, 64 / scan_wall, scan_iters))
 
     # 6. where an iteration's time goes (after the counters were read)
-    phase('6 profile cr', iteration_profile, pk, bk, 'cr', BATCH, 8, 'cr',
-          torch.float32)
-    phase('6 profile scan', iteration_profile, pk, bk, 'scan', SCAN_LANES,
-          4, 'scan', torch.float64)
+    in_solve = {
+        'cr': phase('6 profile cr', iteration_profile, counters, 'cr',
+                    BATCH, 8, 'cr', torch.float32),
+        'scan': phase('6 profile scan', iteration_profile, counters, 'scan',
+                      BATCH, 4, 'scan', torch.float64)}
 
     print(json.dumps({'kernels': kernel_records(
-        rec, blocks, main_launches, scan_launches)}), flush=True)
+        pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches},
+        in_solve)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': count}}), flush=True)

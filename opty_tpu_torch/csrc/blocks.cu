@@ -3,26 +3,31 @@
 //
 // block_inv replaces the Pallas kernel _inv_kernel
 // (opty_tpu/ops/pallas_blocks.py, reached through block_inv_pallas);
-// block_matmul replaces _matmul_kernel (block_matmul_pallas).  The scan
-// KKT factorization (nlp/kkt.py) calls both once per node over the
-// lanes, and the PCR path's border Schur inverse (ops/tridiag.py) calls
-// block_inv once per factorization.
+// block_matmul replaces _matmul_kernel (block_matmul_pallas).  The PCR
+// path's border Schur inverse (ops/tridiag.py) calls block_inv once per
+// factorization.  The scan KKT path does its per-node inverses and
+// products inside the scan_factor kernel (scan.cu), one launch per
+// factorization, so block_matmul has no caller on a solver path.
 //
-// Design: one thread per matrix, the matrix in registers, the
-// arithmetic the device functions of blocks.cuh (shared with pcr.cu).
-// The batch is read as it comes, (batch, d, d) row-major: no transpose
-// to a batch-last layout and no padding of the batch, as the TPU
-// kernels need.  A block of kThreads threads stages its contiguous span
-// of kThreads matrices through shared memory, so global loads and
-// stores are coalesced and every loaded line is used; the ragged end of
-// the batch is masked here.
+// block_inv: one thread per matrix, the matrix in registers, the
+// arithmetic the device function of blocks.cuh (shared with pcr.cu).  A
+// block of kThreads threads stages its contiguous span of kThreads
+// matrices through shared memory, so global loads and stores are
+// coalesced and every loaded line is used; the ragged end of the batch
+// is masked here.
 //
-// What bounds them on an H100: at the scan path's per-node call (tens
-// of matrices) the launch latency, a few microseconds against well
-// under one of bytes.  At a whole node axis (16,032 matrices of d = 5,
-// float32) device memory: the inverse reads and writes 3.2 MB (about
-// 1.0 us at 3.35 TB/s) for ~485 FLOP a matrix, the product moves
-// 4.8 MB (about 1.4 us).
+// block_matmul: one thread per output entry, which loads its row of A
+// and its column of B in one round and sums in order.
+//
+// Both read the batch as it comes, (batch, d, d) row-major: no
+// transpose to a batch-last layout and no padding of the batch, as the
+// TPU kernels need.  What bounds them on an H100: at a few tens of
+// matrices the launch latency, a few microseconds against well under
+// one of bytes (empty_launch, an empty kernel, measures that floor).
+// At a whole node axis (16,032 matrices of d = 5, float32) device
+// memory: the inverse reads and writes 3.2 MB (about 1.0 us at
+// 3.35 TB/s) for ~485 FLOP a matrix, the product moves 4.8 MB (about
+// 1.4 us).
 //
 // Built with -fmad=false, so on finite inputs both equal their plain
 // PyTorch versions (ops/block_kernels.py) bitwise.
@@ -35,6 +40,7 @@ namespace {
 
 constexpr int kThreads = 64;   // 64 matrices a block: 32 KB of shared
                                // memory at d = 8 in double
+constexpr int kProductThreads = 256;   // output entries a block
 
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* tile, const T* src, int n) {
@@ -84,29 +90,28 @@ block_inv_kernel(const T* __restrict__ A, T* __restrict__ X, int batch) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kProductThreads)
 block_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    T* __restrict__ C, int batch) {
-  __shared__ T tile[kThreads * D * D];
-  const int first = blockIdx.x * kThreads;
-  const int n = min(kThreads, batch - first);
-  const bool active = threadIdx.x < n;
-  const size_t offset = size_t(first) * D * D;
-  T Am[D][D], Bm[D][D], Cm[D][D];
-  load_tile<T, D>(tile, A + offset, n);
-  __syncthreads();
-  if (active) read_own<T, D>(Am, tile);
-  __syncthreads();
-  load_tile<T, D>(tile, B + offset, n);
-  __syncthreads();
-  if (active) {
-    read_own<T, D>(Bm, tile);
-    blocks::matmul<T, D>(Am, Bm, Cm);
-    write_own<T, D>(Cm, tile);
+                    T* __restrict__ C, size_t entries) {
+  const size_t e = size_t(blockIdx.x) * kProductThreads + threadIdx.x;
+  if (e >= entries) return;
+  const size_t m = e / (D * D);
+  const int i = int(e % (D * D)) / D, j = int(e % D);
+  const T* a = A + m * D * D + i * D;       // row i
+  const T* b = B + m * D * D + j;           // column j
+  T x[D], y[D];
+#pragma unroll
+  for (int q = 0; q < D; ++q) {
+    x[q] = a[q];
+    y[q] = b[q * D];
   }
-  __syncthreads();
-  store_tile<T, D>(tile, C + offset, n);
+  T acc = x[0] * y[0];
+#pragma unroll
+  for (int q = 1; q < D; ++q) acc = acc + x[q] * y[q];
+  C[e] = acc;
 }
+
+__global__ void empty_kernel() {}
 
 template <typename T, int D>
 cudaError_t launch_inv(const void* A, void* X, int batch, cudaStream_t st) {
@@ -119,10 +124,12 @@ cudaError_t launch_inv(const void* A, void* X, int batch, cudaStream_t st) {
 template <typename T, int D>
 cudaError_t launch_matmul(const void* A, const void* B, void* C, int batch,
                           cudaStream_t st) {
-  const int grid = (batch + kThreads - 1) / kThreads;
-  block_matmul_kernel<T, D><<<grid, kThreads, 0, st>>>(
+  const size_t entries = size_t(batch) * D * D;
+  const unsigned grid =
+      unsigned((entries + kProductThreads - 1) / kProductThreads);
+  block_matmul_kernel<T, D><<<grid, kProductThreads, 0, st>>>(
       static_cast<const T*>(A), static_cast<const T*>(B),
-      static_cast<T*>(C), batch);
+      static_cast<T*>(C), entries);
   return cudaGetLastError();
 }
 
@@ -181,6 +188,12 @@ int block_matmul_f32(const void* A, const void* B, void* C, int batch, int d,
 int block_matmul_f64(const void* A, const void* B, void* C, int batch, int d,
                      void* stream) {
   return matmul_dispatch<double>(A, B, C, batch, d, stream);
+}
+
+// An empty kernel: the time of a launch that does no work.
+int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// Device functions on one small d x d matrix held in registers, shared
-// by the PCR kernels (pcr.cu) and the standalone batched kernels
-// (blocks.cu), so both run the same arithmetic.
+// Device functions on one small d x d matrix held in registers: the
+// inverse shared by the PCR kernels (pcr.cu) and the standalone
+// batched inverse (blocks.cu), so both run the same arithmetic, and the
+// product of the PCR kernels.  scan.cu takes the NaN test, so its
+// pivot search keeps the same rule.
 //
 // Both mirror the plain PyTorch versions operation for operation
 // (ops/lanes.py: block_inv_nl, matmul_nl): same pivot rule, same

@@ -9,12 +9,11 @@ block-tridiagonal with a small dense border (unknown parameters, free
   elimination, a Schur-complement recursion over the nodes with the
   border Schur complement accumulated along, then a small dense border
   solve and block back substitution.  The JAX package's ``lax.scan``
-  recursions are Python loops over the N nodes here, node axis first,
-  so each step works on one contiguous ``(lanes, d, d)`` slice: on the
-  card each pivot inverse is one ``block_inv`` launch and each square
-  block product one ``block_matmul`` launch (ops/block_kernels.py); the
-  rectangular products stay ``torch.matmul``.  Refinement applies the
-  operator from the blocks (``kkt_matvec``).
+  recursions run in ops/scan_kernels.py: on the card a factorization is
+  one ``scan_factor`` launch and a solve one ``scan_solve`` launch
+  (a thread block per lane walking its nodes), on the CPU the plain
+  node loops.  Refinement applies the operator from the blocks
+  (``kkt_matvec``).
 * ``'cr'`` (``factor_kkt_cr``): assembled node-last, factored by
   parallel cyclic reduction (ops/tridiag.py); the float64 operator rides
   along for iterative refinement.
@@ -30,9 +29,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..ops.block_kernels import block_matmul
 from ..ops.lanes import matvec_nl, to_lanes, transpose_nl
-from ..ops.smallblock import block_inv
+from ..ops.scan_kernels import scan_factor, scan_solve
 
 __all__ = ['KKTBlocks', 'KKTFactorization', 'CRFactorization', 'METHODS',
            'check_method', 'factor_kkt', 'solve_factored', 'kkt_matvec',
@@ -142,8 +140,9 @@ def _equilibrate_nl(D, E, F, Kbb):
 
 class KKTFactorization(NamedTuple):
     """Scan factorization, lanes first like every solver array (the
-    solver selects lanes of it).  The per-node arrays are views of
-    node-major storage, (N, ..., ·) in memory, so each step of the
+    solver selects lanes of it).  On the card every array is contiguous
+    as the kernels take it; on the CPU the per-node arrays are views of
+    node-major storage, (N, ..., ·) in memory, so each step of the plain
     recursions reads and writes one contiguous slice over the lanes."""
     S_inv: torch.Tensor          # (..., N, d, d) inverses of the Schur pivots
     Melim: torch.Tensor          # (..., N, d, d) multipliers E_k S_{k-1}^-1
@@ -230,46 +229,13 @@ def _cast_blocks(blocks: KKTBlocks, factor_dtype):
     return KKTBlocks(*[a.to(factor_dtype) for a in blocks])
 
 
-def _node_first(a):
-    """(..., N, x, y) -> (N, ..., x, y), a view."""
-    return a.movedim(-3, 0)
-
-
-def _lanes_first(a):
-    """(N, ..., x, y) -> (..., N, x, y), a view."""
-    return a.movedim(0, -3)
-
-
 def factor_kkt(blocks: KKTBlocks, factor_dtype=None) -> KKTFactorization:
     """Block-tridiagonal forward elimination with border Schur
     accumulation.  RHS-independent; reused by every refinement solve."""
     blocks = _cast_blocks(blocks, factor_dtype)
     D, E, F, Kbb, sn, sb = _equilibrate(*_assemble_node_blocks(blocks))
-    D, E, F = (_node_first(a).contiguous() for a in (D, E, F))
-    ET = E.transpose(-1, -2).contiguous()
-    N, b = D.shape[0], F.shape[-1]
-
-    S_inv = torch.empty_like(D)
-    Melim = torch.empty_like(D)
-    Ft = torch.empty_like(F)
-    S = torch.empty_like(D[0])              # scratch of one step
-    MET = torch.empty_like(D[0])
-    S_prev_inv = torch.zeros_like(D[0])
-    Ft_prev = torch.zeros_like(F[0])
-    for k in range(N):
-        Mk = block_matmul(E[k], S_prev_inv, out=Melim[k])
-        torch.sub(D[k], block_matmul(Mk, ET[k], out=MET), out=S)
-        S_prev_inv = block_inv(S, out=S_inv[k])
-        Ft_prev = torch.sub(F[k], Mk @ Ft_prev, out=Ft[k])
-
-    if b:
-        dKbb = -(Ft.transpose(-1, -2) @ (S_inv @ Ft))
-        Kbb_schur_inv = block_inv(Kbb + torch.sum(dKbb, dim=0))
-    else:
-        Kbb_schur_inv = Kbb.new_zeros(Kbb.shape)
-    return KKTFactorization(_lanes_first(S_inv), _lanes_first(Melim),
-                            _lanes_first(Ft), _lanes_first(E),
-                            Kbb_schur_inv, sn, sb)
+    S_inv, Melim, Ft, Kbb_schur_inv = scan_factor(D, E, F, Kbb)
+    return KKTFactorization(S_inv, Melim, Ft, E, Kbb_schur_inv, sn, sb)
 
 
 def solve_factored(fac: KKTFactorization, r_nodes, r_border):
@@ -278,39 +244,12 @@ def solve_factored(fac: KKTFactorization, r_nodes, r_border):
 
     The rhs and solution go through the equilibration scales
     (K = S^-1 K~ S^-1  =>  u = S K~^-1 S r)."""
-    S_inv, Melim, Ft, E = (_node_first(a)
-                           for a in (fac.S_inv, fac.Melim, fac.Ft, fac.E))
-    dtype = S_inv.dtype
-    r = (r_nodes * fac.scale_nodes).to(dtype).movedim(-2, 0)
-    rb = (r_border * fac.scale_border).to(dtype)
-    N, b = S_inv.shape[0], Ft.shape[-1]
-
-    rt = r.new_empty(r.shape)
-    rt_prev = torch.zeros_like(r[0])
-    for k in range(N):
-        rt_prev = torch.sub(r[k], (Melim[k] @ rt_prev[..., None])[..., 0],
-                            out=rt[k])
-
-    if b:
-        drb = -(Ft.transpose(-1, -2)
-                @ (S_inv @ rt[..., None]))[..., 0]
-        beta = (fac.Kbb_schur_inv
-                @ (rb + torch.sum(drb, dim=0))[..., None])[..., 0]
-        Fb = (Ft @ beta[..., None])[..., 0]
-    else:
-        beta = rb.new_zeros(rb.shape)
-    ET_next = torch.cat([E[1:], torch.zeros_like(E[:1])],
-                        dim=0).transpose(-1, -2)
-
-    u = rt.new_empty(rt.shape)
-    u_next = torch.zeros_like(rt[0])
-    for k in reversed(range(N)):
-        rhs = rt[k] - (ET_next[k] @ u_next[..., None])[..., 0]
-        if b:
-            rhs = rhs - Fb[k]
-        u_next = torch.matmul(S_inv[k], rhs[..., None],
-                              out=u[k][..., None])[..., 0]
-    return u.movedim(0, -2) * fac.scale_nodes, beta * fac.scale_border
+    dtype = fac.S_inv.dtype
+    r = (r_nodes * fac.scale_nodes).to(dtype).contiguous()
+    rb = (r_border * fac.scale_border).to(dtype).contiguous()
+    u, beta = scan_solve(fac.S_inv, fac.Melim, fac.Ft, fac.E,
+                         fac.Kbb_schur_inv, r, rb)
+    return u * fac.scale_nodes, beta * fac.scale_border
 
 
 def kkt_matvec(blocks: KKTBlocks, u, beta):

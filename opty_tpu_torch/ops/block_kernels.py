@@ -11,13 +11,17 @@ loaded through ctypes (ops/cuda_build.py):
   (select-based row swaps) and back substitution.  Singular inputs give
   inf/nan entries.
 * ``block_matmul`` replaces ``_matmul_kernel`` (``block_matmul_pallas``):
-  the product of every pair of d x d matrices, the inner sum in order.
+  the product of every pair of d x d matrices, the inner sum in order,
+  a thread per output entry.
 
 Both take the public ``(..., d, d)`` layout as it comes (no batch-last
 transpose, no padding of the batch), d = 2..8, float32 or float64.  On
-an H100 the scan KKT path's per-node calls (one matrix per lane) are
-bound by launch latency; a whole node axis of matrices is bound by
-device memory (see csrc/blocks.cu).
+an H100 a call of a few tens of matrices is bound by launch latency
+(``empty_launch`` times an empty kernel, that floor); a whole node axis
+of matrices by device memory (see csrc/blocks.cu).  The PCR path calls
+``block_inv`` once per factorization for its border; the scan path's
+per-node inverses and products run inside ``scan_factor``
+(ops/scan_kernels.py).
 
 A tensor on the CPU goes to the plain version (``block_inv_plain``:
 ``lanes.block_inv_nl`` behind a layout change; ``block_matmul_plain``:
@@ -34,7 +38,8 @@ from .cuda_build import check_cuda, launch, load
 from .lanes import block_inv_nl, from_lanes, to_lanes
 
 __all__ = ['block_inv', 'block_matmul', 'block_inv_plain',
-           'block_matmul_plain', 'reset_launch_counts', 'SUPPORTED_D']
+           'block_matmul_plain', 'empty_launch', 'reset_launch_counts',
+           'SUPPORTED_D']
 
 SUPPORTED_D = tuple(range(2, 9))      # block sizes instantiated in blocks.cu
 
@@ -46,6 +51,7 @@ _SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
                for name, args in (
                    ('block_inv', [_VP, _VP, _CI, _CI, _VP]),
                    ('block_matmul', [_VP, _VP, _VP, _CI, _CI, _VP]))}
+_SIGNATURES['empty_launch'] = [_VP]         # the stream
 
 
 def reset_launch_counts():
@@ -133,3 +139,10 @@ def block_matmul(A, B, out=None):
         global matmul_launches
         matmul_launches += 1
     return C
+
+
+def empty_launch(device):
+    """Launch an empty kernel on ``device``'s current stream: the floor
+    of any single launch's time (not counted)."""
+    launch('empty_launch', load('blocks', _SIGNATURES).empty_launch, (),
+           device)

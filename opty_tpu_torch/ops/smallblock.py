@@ -3,15 +3,15 @@
 The counterpart of opty_tpu/ops/smallblock.py: Gaussian elimination
 with partial pivoting on [A | I] (eliminating below the pivot only),
 then triangular back substitution — the classical LU-based inverse.
-
-On a CPU tensor the row swap is a gather, the form the JAX package runs
-on its CPU backend, and the parity target of the float64 reference
-path.  On a CUDA tensor the inverse is the hand-written kernel of
-ops/block_kernels.py, whose swaps are selects, as the JAX package's
-accelerator form is.  On finite inputs both are exact permutations and
-the two agree to round-off.  On non-finite rows they may differ: the
-kernel updates only the rows below each pivot, this form updates every
-row with a zero multiplier, and 0 * inf is nan.
+The row swap is a gather, the form the JAX package runs on its CPU
+backend, and the parity target of the float64 reference path.  Plain
+PyTorch on any device: on the card the scan path inverts its pivots
+inside the scan_factor kernel (ops/scan_kernels.py), whose plain
+version calls this one; the standalone block_inv kernel
+(ops/block_kernels.py) swaps by selects, as the JAX package's
+accelerator form does.  On finite inputs the forms agree to round-off.
+On non-finite rows they may differ: this form updates every row with a
+multiplier, zero above the pivot, and 0 * inf is nan.
 """
 
 import functools
@@ -22,9 +22,9 @@ __all__ = ['block_inv']
 
 
 @functools.lru_cache(maxsize=None)
-def _rows(d):
+def _rows(d, device):
     """Row indices and the per-step row masks of a d x d elimination."""
-    rows = torch.arange(d)
+    rows = torch.arange(d, device=device)
     return (rows, [rows >= k for k in range(d)],
             [(rows > k)[:, None] for k in range(d)],
             [(rows == k)[:, None] for k in range(d)])
@@ -37,14 +37,12 @@ def block_inv(A, out=None):
     Singular inputs produce inf/nan entries (callers detect non-finite
     directions and regularize, as LU factorizations surface
     singularity)."""
-    if A.device.type != 'cpu':
-        from .block_kernels import block_inv as kernel
-        return kernel(A.contiguous(), out=out)
     d = A.shape[-1]
-    rows, at_or_below, below, is_row = _rows(d)
+    rows, at_or_below, below, is_row = _rows(d, A.device)
     # the elimination runs on [M | R] at once: the same elementwise
     # arithmetic as on M and R apart, half the operations
-    eye = torch.broadcast_to(torch.eye(d, dtype=A.dtype), A.shape)
+    eye = torch.broadcast_to(torch.eye(d, dtype=A.dtype, device=A.device),
+                             A.shape)
     MR = torch.cat([A, eye], dim=-1)
 
     for k in range(d):

@@ -1,5 +1,5 @@
-"""The CUDA kernels of opty_tpu_torch (csrc/pcr.cu, csrc/blocks.cu)
-against their plain versions, on the card.  Marked ``cuda``; without a
+"""The CUDA kernels of opty_tpu_torch (csrc/pcr.cu, csrc/blocks.cu,
+csrc/scan.cu) against their plain versions, on the card.  Marked ``cuda``; without a
 card every test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -11,6 +11,7 @@ import torch
 
 from opty_tpu_torch.ops import block_kernels as bk
 from opty_tpu_torch.ops import pcr_kernels as pk
+from opty_tpu_torch.ops import scan_kernels as sk
 from opty_tpu_torch.ops import tridiag
 
 pytestmark = pytest.mark.cuda
@@ -221,6 +222,8 @@ def test_block_kernels_match_plain(card, d, dtype):
             assert got.device.type == 'cuda' and got.dtype == dtype
             assert torch.isfinite(got).all()
             assert _rel(got, want) <= BLOCK_TOL[dtype], B
+        # a thread per output entry keeps the plain version's ordered sum
+        assert torch.equal(C, bk.block_matmul_plain(A, Bm)), B
 
 
 def test_block_kernels_batch_shapes_and_out(card):
@@ -292,8 +295,158 @@ def test_block_launch_counters_move(card):
     assert (bk.inv_launches, bk.matmul_launches) == (1, 2)
 
 
+def test_empty_launch(card):
+    bk.reset_launch_counts()
+    bk.empty_launch(card)
+    torch.cuda.synchronize()
+    assert (bk.inv_launches, bk.matmul_launches) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# scan factorization and solve kernels (csrc/scan.cu)
+# ---------------------------------------------------------------------------
+
+# the kernel inverts by Gauss-Jordan, the plain version by elimination
+# and back substitution, and the plain solve's products go through
+# cuBLAS: round-off apart, on systems whose pivots stay well conditioned
+SCAN_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+SCAN_NB = [(N, B) for N in (1, 2, 3, 101, 501) for B in (1, 8, 32, 200)]
+SCAN_DB = [(d, b) for d in (2, 5, 8) for b in (0, 4, 8)]
+
+
+def _scan_system(B, N, d, b, dtype, device, seed=0):
+    """chip_smoke.py's scan_system: D = 4 I plus noise, E of norm about
+    1 / 2, F = 0.1 noise, Kbb about -4 I, and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    s = 0.5 / np.sqrt(d)
+    D = s * rng.standard_normal((B, N, d, d)) + 4.0 * np.eye(d)
+    E = s * rng.standard_normal((B, N, d, d))
+    E[:, 0] = 0.0
+    F = 0.1 * rng.standard_normal((B, N, d, b))
+    Kbb = 0.5 / np.sqrt(max(b, 1)) * rng.standard_normal((B, b, b)) \
+        - 4.0 * np.eye(b)
+    r = rng.standard_normal((B, N, d))
+    rb = rng.standard_normal((B, b))
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return to(D), to(E), to(F), to(Kbb), to(r), to(rb)
+
+
+def _check_scan(B, N, d, b, dtype, card):
+    D, E, F, Kbb, r, rb = _scan_system(B, N, d, b, dtype, card)
+    fac = sk.scan_factor(D, E, F, Kbb)
+    for g, w in zip(fac, sk.scan_factor_plain(D, E, F, Kbb)):
+        assert g.device.type == 'cuda' and g.dtype == dtype
+        assert g.is_contiguous() and torch.isfinite(g).all()
+        assert _rel(g, w) <= SCAN_TOL[dtype]
+    got = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    want = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) <= SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N,B', SCAN_NB)
+def test_scan_kernels_match_plain(card, N, B, dtype):
+    _check_scan(B, N, 5, 4, dtype, card)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d,b', SCAN_DB)
+def test_scan_kernels_block_sizes(card, d, b, dtype):
+    _check_scan(8, 37, d, b, dtype, card)
+
+
+@pytest.mark.parametrize('b', [0, 4])
+def test_scan_factorizations_interchange(card, b):
+    """A kernel factorization solved by the plain solve, and a plain
+    factorization (made contiguous) solved by the kernel."""
+    dtype = torch.float64
+    D, E, F, Kbb, r, rb = _scan_system(8, 101, 5, b, dtype, card, seed=2)
+    kfac = sk.scan_factor(D, E, F, Kbb)
+    pfac = [a.contiguous() for a in sk.scan_factor_plain(D, E, F, Kbb)]
+    want = sk.scan_solve_plain(*pfac[:3], E, pfac[3], r, rb)
+    for got in (sk.scan_solve_plain(*kfac[:3], E, kfac[3], r, rb),
+                sk.scan_solve(*pfac[:3], E, pfac[3], r, rb)):
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= SCAN_TOL[dtype]
+
+
+def test_scan_singular_lane(card):
+    """A singular pivot makes its lane's outputs non-finite from that
+    node on, as in the plain version, and leaves the other lanes
+    equal to their plain versions."""
+    dtype = torch.float64
+    D, E, F, Kbb, r, rb = _scan_system(4, 30, 5, 4, dtype, card, seed=3)
+    D[2, 10] = 0.0
+    E[2, 10] = 0.0               # S_10 = D_10 = 0 in lane 2
+    fac = sk.scan_factor(D, E, F, Kbb)
+    want = sk.scan_factor_plain(D, E, F, Kbb)
+    assert not torch.isfinite(want[0][2, 10]).all()
+    assert not torch.isfinite(fac[0][2, 10]).all()
+    assert not torch.isfinite(fac[3][2]).all()
+    good = [0, 1, 3]
+    for g, w in zip(fac, want):
+        assert torch.isfinite(g[good]).all()
+        assert _rel(g[good], w[good]) <= SCAN_TOL[dtype]
+    u, beta = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    assert not torch.isfinite(u[2]).all()
+    assert torch.isfinite(u[good]).all() and torch.isfinite(beta[good]).all()
+
+
+def test_scan_one_launch_per_call(card):
+    D, E, F, Kbb, r, rb = _scan_system(200, 501, 5, 4, torch.float64, card)
+    sk.reset_launch_counts()
+    fac = sk.scan_factor(D, E, F, Kbb)
+    sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    torch.cuda.synchronize()
+    assert (sk.factor_launches, sk.solve_launches) == (1, 2)
+    sk.scan_factor_plain(D, E, F, Kbb)          # not a launch
+    assert sk.factor_launches == 1
+
+
+def test_scan_wrappers_refuse_bad_input(card):
+    D, E, F, Kbb, r, rb = _scan_system(2, 8, 5, 4, torch.float32, card)
+    with pytest.raises(ValueError, match='not built'):
+        sk.scan_factor(*_scan_system(2, 8, 9, 4, torch.float32, card)[:4])
+    with pytest.raises(ValueError, match='border'):
+        sk.scan_factor(*_scan_system(2, 8, 5, 9, torch.float32, card)[:4])
+    with pytest.raises(ValueError, match='share one device'):
+        sk.scan_factor(D, E.double(), F, Kbb)
+    with pytest.raises(ValueError, match='share one device'):
+        sk.scan_factor(D, E, F.cpu(), Kbb)
+    with pytest.raises(ValueError, match='contiguous'):
+        sk.scan_factor(D, E.transpose(-1, -2), F, Kbb)
+    with pytest.raises(ValueError):
+        sk.scan_factor(D.half(), E.half(), F.half(), Kbb.half())
+    fac = sk.scan_factor(D, E, F, Kbb)
+    with pytest.raises(ValueError, match='contiguous'):
+        sk.scan_solve(*fac[:3], E, fac[3], r.transpose(0, 1).contiguous()
+                      .transpose(0, 1), rb)
+    with pytest.raises(ValueError, match='expected shape'):
+        sk.scan_solve(*fac[:3], E, fac[3], r[:, :4], rb)
+
+
+def test_scan_refused_launch_raises(card):
+    """The C entry refuses what it was not built for (here d = 9) and
+    returns the error, which the launch raises; the next launch runs."""
+    from opty_tpu_torch.ops.cuda_build import launch, load
+    D, E, F, Kbb, r, rb = _scan_system(2, 8, 5, 4, torch.float32, card)
+    out = [torch.empty_like(a) for a in (D, D, F, Kbb)]
+    fn = load('scan', sk._SIGNATURES).scan_factor_f32
+    args = tuple(a.data_ptr() for a in (D, E, F, Kbb, *out))
+    for d, N, nb in ((9, 8, 4), (5, 0, 4), (5, 8, 9)):
+        with pytest.raises(RuntimeError, match='cudaError'):
+            launch('scan_factor', fn, args + (2, d, N, nb), card)
+    fac = sk.scan_factor(D, E, F, Kbb)
+    torch.cuda.synchronize()
+    assert _rel(fac[0], sk.scan_factor_plain(D, E, F, Kbb)[0]) \
+        <= SCAN_TOL[torch.float32]
+
+
 def test_scan_solve_on_card_equals_cpu(card):
-    """A scan solve through the block kernels on the card against the
+    """A scan solve through the scan kernels on the card against the
     same solve through the plain versions on the CPU."""
     from opty_tpu_torch.models import swing_up_problem
     out = {}
@@ -304,9 +457,11 @@ def test_scan_solve_on_card_equals_cpu(card):
                                 max_iter=40)
         x0 = np.random.default_rng(29).normal(size=prob.num_free)
         bk.reset_launch_counts()
+        sk.reset_launch_counts()
         out[dev] = prob.solve(x0)[1]
         if dev == 'cuda':
-            assert bk.inv_launches > 0 and bk.matmul_launches > 0
+            assert sk.factor_launches > 0 and sk.solve_launches > 0
+            assert (bk.inv_launches, bk.matmul_launches) == (0, 0)
     got, want = out['cuda'], out['cpu']
     assert got['status'] == want['status']
     assert got['iterations'] == want['iterations']
