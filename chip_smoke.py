@@ -21,17 +21,30 @@ Phases, each reported on its own line(s) with its wall time:
    product at 8 and 32 matrices (d = 5), at a whole node axis
    (16,032) and at the border's d = 4, beside torch.linalg.inv_ex and
    torch.bmm as yardsticks;
-4. reference: a small solve (N = 101, float64 factorization) on the card
-   against the same solve on the CPU (the plain versions), once with
-   kkt_method='cr' (4) and once with 'scan' (4b, through the scan
-   kernels, by their counters);
+4. reference: a small solve (N = 101, float64 factorization, monotone
+   mu, no second-order correction) on the card against the same solve
+   on the CPU (the plain versions), once with kkt_method='cr' (4) and
+   once with 'scan' (4b, through the scan kernels, by their counters);
+4c. restoration: N = 101 swing-up solves with the library's default
+   options (adaptive mu, second-order correction, restoration) from
+   starts that enter restoration (REST_SEEDS), float64 factorization,
+   kkt_method='cr' and 'scan', on the card against the CPU (the CPU
+   solves run in two child processes started at the beginning); the
+   kernels' launches inside the restoration visits are counted apart;
 5. main path: the pendulum swing-up at N = 501 through
    ``swing_up_problem`` -> ``set_solver_options`` -> ``solve_queue``,
-   64 instances on 32 refilled lanes, kkt_method='cr', launch counters
-   reset just before and read just after;
+   64 instances on 32 refilled lanes, kkt_method='cr', monotone mu, no
+   second-order correction, launch counters reset just before and read
+   just after;
 5b. scan path: the same queue, the same way, with kkt_method='scan', a
    float64 factorization and 1 refinement round; counters reset just
    before and read just after; its wall beside phase 5's;
+5c. default path: the same queue with only ``max_iter`` and
+   ``chunk_iters`` set, so the card's defaults (kkt_method='cr',
+   float32 factor + 6 rounds) and the library's (adaptive mu,
+   second-order correction, restoration); counters reset just before
+   and read just after; held to the JAX package's mean iterations on
+   the same rows (JAX_DEFAULT_MEAN);
 6. profile: a few iterations of each path at 32 lanes, once counting
    host syncs and once under torch.profiler (device busy time, kernel
    launches, the per-launch time of each hand-written kernel).
@@ -86,6 +99,21 @@ TOL_BLOCK = {'float64': 1e-12, 'float32': 1e-5}
 # through cuBLAS, so the two agree to round-off amplified by the
 # systems' condition (scan_system keeps it small)
 TOL_SCAN = {'float64': 1e-11, 'float32': 1e-4}
+# phase 4c: default_rng(seed) starts of the N = 101 swing-up (torque
+# bound 20) whose JAX-package solves with the default options enter
+# restoration and converge with kkt_method='cr' and 'scan' alike, and
+# the port's CPU solves from them equal the JAX package's
+# (tests/test_torch_solver_default.py); card against CPU: the same
+# status, iterations within REST_ITER_SLACK, restoration on both,
+# objectives within REST_OBJ_TOL relative
+REST_SEEDS = (14, 57)
+REST_ITER_SLACK = 2
+REST_OBJ_TOL = 1e-6
+# phase 5c's limit: the JAX package's mean iterations on the same 64
+# rows, 32 lanes, kkt_method='cr', float32 factor, default options
+# (scripts/jax_default_queue.py, JAX on the CPU), times 1.25
+JAX_DEFAULT_MEAN = 38.40625
+DEFAULT_MEAN_FACTOR = 1.25
 
 
 def log(*args):
@@ -559,24 +587,21 @@ def check_solutions(prob, x, ok, n):
     return worst
 
 
-def queue_path(counters, label, kkt_method, factor_dtype, required,
-               forbidden=()):
+def queue_path(counters, label, options, required, forbidden=(),
+               mean_limit=52.0):
     """The first 64 rows of bench.py's queue (default_rng(7), N = 501)
-    through ``solve_queue`` on 32 refilled lanes, ``chunk_iters=20``,
-    ``max_iter=200``, monotone mu, no SOC; launch counters reset just
-    before and read just after.  Holds the queue to PERF.md's limits
-    (>= 60/64 converged, mean iterations <= 52, none retired for
-    restoration, converged solutions within 1e-6 of their constraints)
-    and fails unless every kernel of ``required`` was launched and none
-    of ``forbidden``.  Returns (launches, wall seconds, mean
-    iterations)."""
+    through ``solve_queue`` on 32 refilled lanes with ``options``
+    (``set_solver_options``; ``max_iter=200`` and ``chunk_iters=20``
+    always); launch counters reset just before and read just after.
+    Holds the queue to PERF.md's limits (>= 60/64 converged, mean
+    iterations <= ``mean_limit``, converged solutions within 1e-6 of
+    their constraints) and fails unless every kernel of ``required`` was
+    launched and none of ``forbidden``.  Returns (launches, wall
+    seconds, mean iterations)."""
     import torch
     from opty_tpu_torch.models import swing_up_problem
-    from opty_tpu_torch.nlp.status import RESTORATION_NOT_PORTED
     prob = swing_up_problem(num_nodes=NODES)          # the card by default
-    prob.set_solver_options(max_iter=200, chunk_iters=20,
-                            kkt_method=kkt_method, use_soc=False,
-                            mu_strategy='monotone', factor_dtype=factor_dtype)
+    prob.set_solver_options(max_iter=200, chunk_iters=20, **options)
     queue = np.random.default_rng(7).standard_normal((64, prob.num_free))
     chunks = []
     torch.cuda.synchronize()
@@ -590,19 +615,23 @@ def queue_path(counters, label, kkt_method, factor_dtype, required,
 
     status = np.asarray(res.status)
     iters = np.asarray(res.iterations)
+    rest = np.asarray(res.rest_total)
     ok = (status == 0) | (status == 1)
-    n_rest = int(np.sum(status == RESTORATION_NOT_PORTED))
-    log('{}: kkt_method={} factor {}: converged {}/64 (status 0/1), '
-        'iterations mean={:.2f} p50={} p90={} max={}, retired for '
-        'restoration={}, wall_s={:.2f} ({:.3f} solves/s), chunks={}, '
+    restored = {int(i): int(rest[i]) for i in np.where(rest > 0)[0]}
+    mono = [int(i) for i in np.where(np.asarray(res.mono))[0]]
+    log('{}: {}: converged {}/64 (status 0/1), iterations mean={:.2f} '
+        'p50={} p90={} max={}, wall_s={:.2f} ({:.3f} solves/s), chunks={}, '
         'launches={}'.format(
-            label, kkt_method, str(factor_dtype).split('.')[-1],
+            label, describe(options),
             int(ok.sum()), float(iters.mean()),
             int(np.percentile(iters, 50)), int(np.percentile(iters, 90)),
-            int(iters.max()), n_rest, wall, 64 / wall, len(chunks),
+            int(iters.max()), wall, 64 / wall, len(chunks),
             json.dumps(launches)))
-    log('{} statuses: {}'.format(label, json.dumps(
-        {int(s): int(np.sum(status == s)) for s in np.unique(status)})))
+    log('{} statuses: {}; fell back to monotone mu: {} rows {}; entered '
+        'restoration: {} rows, restoration iterations {}'.format(
+            label, json.dumps({int(s): int(np.sum(status == s))
+                               for s in np.unique(status)}),
+            len(mono), mono, len(restored), json.dumps(restored)))
     worst = check_solutions(prob, np.asarray(res.x), ok, 64)
     log('{}: worst constraint / boundary violation over converged lanes = '
         '{:.3e}'.format(label, worst))
@@ -618,30 +647,132 @@ def queue_path(counters, label, kkt_method, factor_dtype, required,
                 kname, launches[kname], label))
     if ok.sum() < 60:
         fail('{}: only {}/64 lanes converged'.format(label, int(ok.sum())))
-    if iters.mean() > 52:
-        fail('{}: mean iterations {:.2f} > 52'.format(
-            label, float(iters.mean())))
-    if n_rest:
-        fail('{}: {} lanes retired for restoration'.format(label, n_rest))
+    if iters.mean() > mean_limit:
+        fail('{}: mean iterations {:.2f} > {:.2f}'.format(
+            label, float(iters.mean()), mean_limit))
     return launches, wall, float(iters.mean())
 
 
-def iteration_profile(counters, label, lanes, iters, kkt_method,
-                      factor_dtype):
+def describe(options):
+    return json.dumps({k: str(v).split('.')[-1] for k, v in
+                       options.items()}) if options else 'default options'
+
+
+def rest_solve(dev, kkt_method, seed):
+    """One phase-4c solve: N = 101, torque bound 20, float64
+    factorization, every other option at its default."""
+    import torch
+    from opty_tpu_torch.models import swing_up_problem
+    prob = swing_up_problem(num_nodes=101, torque_bound=20.0, device=dev)
+    prob.set_solver_options(kkt_method=kkt_method,
+                            factor_dtype=torch.float64)
+    x0 = np.random.default_rng(seed).normal(size=prob.num_free)
+    t0 = time.time()
+    _, info = prob.solve(x0)
+    return dict(status=info['status'], iterations=info['iterations'],
+                rest=info['rest_iterations'], mono=info['mono_fallback'],
+                obj=info['obj_val'], wall_s=time.time() - t0)
+
+
+def cpu_reference(kkt_method):
+    """``--cpu-reference METHOD``: phase 4c's CPU solves (the plain
+    versions), one JSON line each, in a child process."""
+    import torch
+    sys.path.insert(0, HERE)
+    torch.set_num_threads(1)
+    for seed in REST_SEEDS:
+        print(json.dumps(dict(seed=seed, **rest_solve('cpu', kkt_method,
+                                                      seed))), flush=True)
+
+
+def start_cpu_references():
+    """The CPU solves of phase 4c, one child process per KKT method,
+    started before the card's phases so that they overlap them."""
+    return {method: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--cpu-reference',
+         method], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for method in ('cr', 'scan')}
+
+
+def restoration_phase(counters, kkt_method, child, required):
+    """Phase 4c for one KKT method: the card's default-option solves
+    from REST_SEEDS against the CPU's (``child``); the launches inside
+    restoration visits are counted by wrapping
+    ``steps.restoration_solve``.  Returns the card's launches inside
+    the visits."""
+    import torch
+    from opty_tpu_torch.nlp import steps
+    inner = {k: 0 for k in launch_counts(*counters)}
+    visits = [0]
+    solve_visit = steps.restoration_solve
+
+    def counted(*args, **kwargs):
+        before = launch_counts(*counters)
+        out = solve_visit(*args, **kwargs)
+        torch.cuda.synchronize()
+        for k, v in launch_counts(*counters).items():
+            inner[k] += v - before[k]
+        visits[0] += 1
+        return out
+
+    card = {}
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    steps.restoration_solve = counted
+    try:
+        for seed in REST_SEEDS:
+            card[seed] = rest_solve('cuda', kkt_method, seed)
+    finally:
+        steps.restoration_solve = solve_visit
+    torch.cuda.synchronize()
+    launches = launch_counts(*counters)
+    out, err = child.communicate(timeout=900)
+    if child.returncode != 0:
+        fail('the CPU reference of phase 4c ({}) failed:\n{}'.format(
+            kkt_method, err[-2000:]))
+    cpu = {}
+    for line in out.splitlines():
+        rec = json.loads(line)
+        cpu[rec.pop('seed')] = rec
+    for seed in REST_SEEDS:
+        g, c = card[seed], cpu[seed]
+        rel = abs(g['obj'] - c['obj']) / abs(c['obj'])
+        log('restoration N=101 {} seed {}: card status={} iters={} rest={} '
+            'mono={} obj={:.12g} wall_s={:.1f}; cpu status={} iters={} '
+            'rest={} mono={} obj={:.12g} wall_s={:.1f}; obj rel diff={:.2e}'
+            .format(kkt_method, seed, g['status'], g['iterations'],
+                    g['rest'], g['mono'], g['obj'], g['wall_s'],
+                    c['status'], c['iterations'], c['rest'], c['mono'],
+                    c['obj'], c['wall_s'], rel))
+        if g['status'] not in (0, 1) or g['status'] != c['status'] \
+                or abs(g['iterations'] - c['iterations']) > REST_ITER_SLACK \
+                or g['rest'] == 0 or c['rest'] == 0 or rel > REST_OBJ_TOL:
+            fail('card and CPU default-option {} solves disagree from seed '
+                 '{}'.format(kkt_method, seed))
+    log('restoration N=101 {}: card launches {} in all, {} inside {} '
+        'restoration visits'.format(kkt_method, json.dumps(launches),
+                                    json.dumps(inner), visits[0]))
+    for kname in required:
+        if inner[kname] == 0:
+            fail('{} was not launched inside the {} restoration visits'
+                 .format(kname, kkt_method))
+    return inner
+
+
+def iteration_profile(counters, label, lanes, iters, options):
     """Where an iteration's time goes: one cold batch of ``lanes`` lanes
-    for ``iters`` iterations (the initialization included), once
-    counting host syncs (torch's sync debug mode warns on each) and once
-    under torch.profiler, tracing the device only, for its busy time.
-    Returns {kernel: device ms per launch in the solve} of the
-    hand-written kernels the profile saw."""
+    for ``iters`` iterations (the initialization included) with
+    ``options``, once counting host syncs (torch's sync debug mode warns
+    on each) and once under torch.profiler, tracing the device only, for
+    its busy time.  Returns ({kernel: device ms per launch in the solve}
+    of the hand-written kernels the profile saw, {kernel: launches per
+    iteration})."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
     from opty_tpu_torch.models import swing_up_problem
     prob = swing_up_problem(num_nodes=NODES)
-    prob.set_solver_options(max_iter=iters, kkt_method=kkt_method,
-                            use_soc=False, mu_strategy='monotone',
-                            factor_dtype=factor_dtype)
+    prob.set_solver_options(max_iter=iters, **options)
     free = np.random.default_rng(7).standard_normal((lanes, prob.num_free))
     prob.solve_batch(free)                       # warm caches and allocator
     torch.cuda.synchronize()
@@ -691,7 +822,7 @@ def iteration_profile(counters, label, lanes, iters, kkt_method,
     for kname, ms in in_solve.items():
         log('profile {} {}: {:.2f} us per launch in the solve'.format(
             label, kname, ms * 1e3))
-    return in_solve
+    return in_solve, per_iter
 
 
 def phase(title, fn, *args):
@@ -750,7 +881,11 @@ def kernel_records(pcr, scan, blocks, launches, in_solve):
     out = []
     for kname, source, replaces, _ in KERNELS:
         entry = dict(name=kname, route='cuda', source=source,
-                     replaces=replaces)
+                     replaces=replaces,
+                     launches_default_path=launches['default'][kname],
+                     launches_in_restoration={
+                         m: launches['rest_' + m][kname]
+                         for m in ('cr', 'scan')})
         if kname in pcr or kname in scan:
             shapes = pcr.get(kname) or scan[kname]
             path = 'cr' if kname in pcr else 'scan'
@@ -792,6 +927,9 @@ def kernel_records(pcr, scan, blocks, launches, in_solve):
 
 
 def main():
+    if sys.argv[1:2] == ['--cpu-reference']:
+        cpu_reference(sys.argv[2])
+        return
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device: chip_smoke.py runs on the card only')
@@ -800,7 +938,17 @@ def main():
     from opty_tpu_torch.ops import pcr_kernels as pk
     from opty_tpu_torch.ops import scan_kernels as sk
     counters = (pk, bk, sk)
+    children = start_cpu_references()
+    try:
+        run(torch, counters, pk, bk, sk, children)
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+            child.communicate()
 
+
+def run(torch, counters, pk, bk, sk, children):
     # 1. device
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -835,31 +983,65 @@ def main():
             or ref['block_inv'] or ref['block_matmul']:
         fail('the N = 101 scan solve on the card did not run through the '
              'scan kernels alone: {}'.format(json.dumps(ref)))
+    # 4c. restoration with the default options, card against CPU
+    rest_cr = phase('4c restoration cr', restoration_phase, counters,
+                       'cr', children['cr'],
+                       ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'))
+    rest_scan = phase('4c restoration scan', restoration_phase,
+                         counters, 'scan', children['scan'],
+                         ('scan_factor', 'scan_solve'))
 
-    # 5. the main path, 5b. the scan path
+    # 5. the main path, 5b. the scan path, 5c. the default path
     cr_launches, cr_wall, cr_iters = phase(
-        '5 main path', queue_path, counters, 'main path', 'cr',
-        torch.float32, ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'))
+        '5 main path', queue_path, counters, 'main path',
+        dict(kkt_method='cr', factor_dtype=torch.float32, use_soc=False,
+             mu_strategy='monotone'),
+        ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'))
     scan_launches, scan_wall, scan_iters = phase(
-        '5b scan path', queue_path, counters, 'scan path', 'scan',
-        torch.float64, ('scan_factor', 'scan_solve'),
-        ('block_inv', 'block_matmul'))
+        '5b scan path', queue_path, counters, 'scan path',
+        dict(kkt_method='scan', factor_dtype=torch.float64, use_soc=False,
+             mu_strategy='monotone'),
+        ('scan_factor', 'scan_solve'), ('block_inv', 'block_matmul'))
+    def_launches, def_wall, def_iters = phase(
+        '5c default path', queue_path, counters, 'default path', {},
+        ('pcr_factor_levels', 'pcr_downsweep', 'block_inv'),
+        ('scan_factor', 'scan_solve'),
+        DEFAULT_MEAN_FACTOR * JAX_DEFAULT_MEAN)
     log('queues of 64 on 32 lanes ({}): cr float32 factor + 6 rounds '
         '{:.2f} s ({:.3f} solves/s, mean {:.2f} iterations); scan float64 '
         'factor + 1 round {:.2f} s ({:.3f} solves/s, mean {:.2f} '
-        'iterations)'.format(smi, cr_wall, 64 / cr_wall, cr_iters,
-                             scan_wall, 64 / scan_wall, scan_iters))
+        'iterations); default options (cr float32 factor + 6 rounds, '
+        'adaptive mu, SOC, restoration) {:.2f} s ({:.3f} solves/s, mean '
+        '{:.2f} iterations against the JAX package\'s {:.2f})'.format(
+            smi, cr_wall, 64 / cr_wall, cr_iters, scan_wall,
+            64 / scan_wall, scan_iters, def_wall, 64 / def_wall, def_iters,
+            JAX_DEFAULT_MEAN))
 
     # 6. where an iteration's time goes (after the counters were read)
-    in_solve = {
+    profiles = {
         'cr': phase('6 profile cr', iteration_profile, counters, 'cr',
-                    BATCH, 8, 'cr', torch.float32),
+                    BATCH, 8, dict(kkt_method='cr',
+                                   factor_dtype=torch.float32,
+                                   use_soc=False, mu_strategy='monotone')),
         'scan': phase('6 profile scan', iteration_profile, counters, 'scan',
-                      BATCH, 4, 'scan', torch.float64)}
+                      BATCH, 4, dict(kkt_method='scan',
+                                     factor_dtype=torch.float64,
+                                     use_soc=False,
+                                     mu_strategy='monotone')),
+        'default': phase('6 profile default', iteration_profile, counters,
+                         'default', BATCH, 8, {})}
+    solves = {p: profiles[p][1]['pcr_downsweep'] for p in ('cr', 'default')}
+    log('profile: pcr_downsweep launches (one a solve) per iteration: cr '
+        '{:.3f}, default {:.3f}; the corrector and the SOC add {:.3f} '
+        'solves an iteration'.format(solves['cr'], solves['default'],
+                                     solves['default'] - solves['cr']))
+    in_solve = {p: v[0] for p, v in profiles.items()}
 
     print(json.dumps({'kernels': kernel_records(
-        pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches},
-        in_solve)}), flush=True)
+        pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches,
+                            'default': def_launches, 'rest_cr': rest_cr,
+                            'rest_scan': rest_scan}, in_solve)}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': count}}), flush=True)

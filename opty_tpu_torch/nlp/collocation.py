@@ -14,9 +14,12 @@ Gradient-based NLP scaling (Ipopt's ``nlp_scaling_method=
 gradient-based``, ``scaling_max_gradient`` 100) is computed per lane
 from its initial point.
 
-``kkt_prepare_gn``, ``kkt_apply_soc`` and ``kkt_solve_feasibility``
-serve restoration and the second-order correction and are not ported
-yet (ROADMAP queue 1 item 11).
+``kkt_prepare_gn`` (the Jacobian-only prep of the restoration's
+Gauss-Newton steps), ``kkt_apply_soc`` (the second-order correction's
+one-round re-solve) and ``kkt_solve_feasibility`` complete the
+``IPMFunctions`` contract; ``take_lanes`` narrows the functions to a
+subset of the lanes (a restoration visit runs on the entering lanes
+only).
 """
 
 import torch
@@ -150,18 +153,6 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         return torch.cat([eom_nodes.transpose(-1, -2).reshape(lead + (-1,)),
                           inst], dim=-1)
 
-    def objective_s(free):
-        return lanes(sf, free.shape[0]) * vmap(objective)(free)
-
-    def gradient_s(free):
-        return lanes(sf, free.shape[0])[:, None] * vmap(grad_fn)(free)
-
-    def constraints_s(free):
-        B = free.shape[0]
-        res, inst = vmap(col.constraints_nodewise)(free)
-        return join_con(res * lanes(dsc_nodes, B),
-                        inst * lanes(dsc_inst, B))
-
     def split_instance_jac(G):
         if o:
             GX = G[:, :n * N].reshape(o, n, N)
@@ -173,15 +164,27 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
             Gw = G.new_zeros((0, bw))
         return Gz, Gw
 
-    def prepare_one(x, y, sf1, dn, di):
-        """kkt_prepare for one lane (vmapped over the lanes)."""
-        y_nodes, y_inst = split_con(y)
+    def jacobian_one(x, dn, di):
+        """The scaled Jacobian as KKT blocks for one lane, shared by
+        kkt_prepare and kkt_prepare_gn."""
         A, B, C, G = col.jacobian_blocks(x)
         A = A * dn[:, :, None]
         B = B * dn[:, :, None]
         C = C * dn[:, :, None]
         if o:
             G = G * di[:, None]
+        # constraint block k couples z_{k-1}, z_k (k = 1..N-1); backward
+        # Euler interval i: cur = i+1 (= k), adj = i (= k-1)
+        zM = A.new_zeros((1, M, nz))
+        Gz, Gw = split_instance_jac(G)
+        return dict(P=torch.cat([zM, A], dim=0), Q=torch.cat([zM, B], dim=0),
+                    Cn=torch.cat([A.new_zeros((1, M, bw)), C], dim=0),
+                    Gz=Gz, Gw=Gw)
+
+    def prepare_one(x, y, sf1, dn, di):
+        """kkt_prepare for one lane (vmapped over the lanes)."""
+        y_nodes, y_inst = split_con(y)
+        prep = jacobian_one(x, dn, di)
 
         # Lagrangian Hessian of the scaled constraints: row-scaled
         # multipliers into the exact per-node Hessian
@@ -195,24 +198,18 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
             return val
 
         Hd2, Ho2, Hw2, Hww2 = struct_hess(phi, x)
+        prep.update(Hd=Hd + Hd2, Ho=Ho + Ho2, Hw=Hw + Hw2, Hww=Hww + Hww2)
+        return prep
 
-        # constraint block k couples z_{k-1}, z_k (k = 1..N-1); backward
-        # Euler interval i: cur = i+1 (= k), adj = i (= k-1)
-        zM = A.new_zeros((1, M, nz))
-        P = torch.cat([zM, A], dim=0)
-        Q = torch.cat([zM, B], dim=0)
-        Cn = torch.cat([A.new_zeros((1, M, bw)), C], dim=0)
-        Gz, Gw = split_instance_jac(G)
-        return dict(Hd=Hd + Hd2, Ho=Ho + Ho2, Hw=Hw + Hw2,
-                    Hww=Hww + Hww2, P=P, Q=Q, Cn=Cn, Gz=Gz, Gw=Gw)
-
-    def kkt_prepare(x, y):
-        """Per-iteration block construction at (x, y), (B, ·) each:
-        scaled Jacobian blocks plus the exact Lagrangian Hessian
-        blocks.  Shared by the direction trials."""
-        B = x.shape[0]
-        return vmap(prepare_one)(x, y, lanes(sf, B), lanes(dsc_nodes, B),
-                                 lanes(dsc_inst, B))
+    def prepare_gn_one(x, dn, di):
+        """kkt_prepare_gn for one lane: the Jacobian blocks with zero
+        Hessian blocks (the restoration's Gauss-Newton iteration never
+        uses the Lagrangian Hessian)."""
+        prep = jacobian_one(x, dn, di)
+        z_nn = x.new_zeros((N, nz, nz))
+        prep.update(Hd=z_nn, Ho=z_nn, Hw=x.new_zeros((N, nz, bw)),
+                    Hww=x.new_zeros((bw, bw)))
+        return prep
 
     def _blocks_with(Hd, Ho, Hw, Hww, prep, ds):
         ds_nodes, ds_inst = split_con(ds)
@@ -239,7 +236,7 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         ``gn_mask`` (bool, or per-lane (B,) bool) zeroes the Lagrangian
         Hessian blocks, turning the matrix into the damped Gauss-Newton
         system [[sigma, J^T], [J, -ds]] (the least-squares multiplier
-        initialization uses it)."""
+        initialization and the restoration's inner steps use it)."""
         sz, sw = split_free(sigma_x)
         Hd, Ho, Hw, Hww = (prep['Hd'], prep['Ho'], prep['Hw'],
                            prep['Hww'])
@@ -264,11 +261,12 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
                          + torch.sum(r_border ** 2, dim=-1))
         return num / torch.clamp(den, min=1e-300)
 
-    def _apply_with_refinement(blocks_fac, r_nodes, r_border, n_refine):
+    def _apply_with_refinement(blocks_fac, r_nodes, r_border, n_refine,
+                               with_resid=True):
         """Solve, refine ``n_refine`` rounds against the float64
-        operator and measure the relative KKT residual.  The residual
-        is shared with the last refinement round when there are >= 2
-        rounds (after a single round it would be the raw factor
+        operator and (``with_resid``) measure the relative KKT residual.
+        The residual is shared with the last refinement round when there
+        are >= 2 rounds (after a single round it would be the raw factor
         residual); otherwise it takes a dedicated operator pass."""
         blocks, fac = blocks_fac
         if kkt_method == 'cr':
@@ -285,18 +283,18 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         resid = None
         for i in range(n_refine):
             Ku, Kb = apply(u, beta)
-            if n_refine >= 2 and i == n_refine - 1:
+            if with_resid and n_refine >= 2 and i == n_refine - 1:
                 resid = _resid(Ku, Kb, r_nodes, r_border)
             du, dbeta = solve(r_nodes - Ku, r_border - Kb)
             u = u + du.to(dtype)
             beta = beta + dbeta.to(dtype)
-        if resid is None:
+        if with_resid and resid is None:
             Ku, Kb = apply(u, beta)
             resid = _resid(Ku, Kb, r_nodes, r_border)
         if kkt_method == 'cr':
             u = u.transpose(-1, -2)
         dx, dy = _join_sol(u, beta)
-        return dx, dy, resid
+        return (dx, dy, resid) if with_resid else (dx, dy)
 
     def kkt_apply(blocks_fac, rx, rc):
         """Solve a factored system; returns (dx, dy, rel_resid (B,))."""
@@ -304,11 +302,66 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         return _apply_with_refinement(blocks_fac, r_nodes, r_border,
                                       refine_steps)
 
+    def kkt_apply_soc(blocks_fac, rx, rc):
+        """Light re-solve for the second-order correction: one
+        refinement round and no residual (the filter judges the SOC
+        step on actual constraint evaluations)."""
+        r_nodes, r_border = _split_rhs(rx, rc)
+        return _apply_with_refinement(blocks_fac, r_nodes, r_border,
+                                      min(refine_steps, 1),
+                                      with_resid=False)
+
     def kkt_solve(prep, sigma_x, ds, rx, rc):
         return kkt_apply(kkt_factor(prep, sigma_x, ds), rx, rc)
 
-    fns = IPMFunctions(objective=objective_s, gradient=gradient_s,
-                       constraints=constraints_s, kkt_prepare=kkt_prepare,
-                       kkt_factor=kkt_factor, kkt_apply=kkt_apply,
-                       kkt_solve=kkt_solve, kkt_solve_feasibility=None)
-    return fns, (sf, dsc_full)
+    def kkt_solve_feasibility(prep, sigma_x, rc):
+        """Damped Gauss-Newton feasibility step: the Hessian replaced by
+        the diagonal ``sigma_x``, the Jacobian blocks reused from
+        ``prep``, a unit slack diagonal on every row and a zero primal
+        rhs ((J^T J + lam) dx = -J^T r in augmented form), one
+        refinement round.  Returns (dx, dy)."""
+        fac = kkt_factor(prep, sigma_x, torch.ones_like(rc), True)
+        return kkt_apply_soc(fac, torch.zeros_like(sigma_x), rc)
+
+    def build(sf, dsc_nodes, dsc_inst):
+        """The IPMFunctions whose per-lane data are these scales."""
+        def objective_s(free):
+            return lanes(sf, free.shape[0]) * vmap(objective)(free)
+
+        def gradient_s(free):
+            return lanes(sf, free.shape[0])[:, None] * vmap(grad_fn)(free)
+
+        def constraints_s(free):
+            B = free.shape[0]
+            res, inst = vmap(col.constraints_nodewise)(free)
+            return join_con(res * lanes(dsc_nodes, B),
+                            inst * lanes(dsc_inst, B))
+
+        def kkt_prepare(x, y):
+            """Per-iteration block construction at (x, y), (B, ·) each:
+            scaled Jacobian blocks plus the exact Lagrangian Hessian
+            blocks.  Shared by the direction trials, the corrector and
+            the SOC re-solve."""
+            B = x.shape[0]
+            return vmap(prepare_one)(x, y, lanes(sf, B),
+                                     lanes(dsc_nodes, B), lanes(dsc_inst, B))
+
+        def kkt_prepare_gn(x):
+            """Jacobian-only prep for the restoration's inner solver."""
+            B = x.shape[0]
+            return vmap(prepare_gn_one)(x, lanes(dsc_nodes, B),
+                                        lanes(dsc_inst, B))
+
+        def take_lanes(idx):
+            pick = lambda t: t if t.shape[0] == 1 else t[idx]
+            return build(pick(sf), pick(dsc_nodes), pick(dsc_inst))
+
+        return IPMFunctions(
+            objective=objective_s, gradient=gradient_s,
+            constraints=constraints_s, kkt_prepare=kkt_prepare,
+            kkt_factor=kkt_factor, kkt_apply=kkt_apply,
+            kkt_apply_soc=kkt_apply_soc, kkt_solve=kkt_solve,
+            kkt_solve_feasibility=kkt_solve_feasibility,
+            kkt_prepare_gn=kkt_prepare_gn, take_lanes=take_lanes)
+
+    return build(sf, dsc_nodes, dsc_inst), (sf, dsc_full)

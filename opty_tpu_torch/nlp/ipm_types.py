@@ -158,9 +158,13 @@ class IPMFunctions(NamedTuple):
     iterative refinement, so an unchanged matrix is never re-factored.
     ``kkt_solve(prep, sigma_x, ds, rx, rc)`` is the fused convenience
     form (= apply(factor(...))) kept for external callers.
-    ``kkt_solve_feasibility``, ``kkt_apply_soc`` and ``kkt_prepare_gn``
-    serve the restoration phase and the second-order correction, which
-    are not ported yet: the collocation functions leave them None.
+    ``kkt_solve_feasibility(prep, sigma_x, rc)`` solves the damped
+    Gauss-Newton system for the restoration phase
+    ([[diag(sigma_x), J^T], [J, -I]]).
+    ``take_lanes(idx)`` returns the functions for the lanes ``idx`` of
+    the batch (their per-lane data, such as NLP scaling, gathered); the
+    solver runs a restoration visit on the entering lanes only through
+    it.  None means the functions hold no per-lane data.
     """
     objective: Callable[[Any], Any]
     gradient: Callable[[Any], Any]
@@ -181,6 +185,7 @@ class IPMFunctions(NamedTuple):
     # Hessian assembly an inner GN iteration never uses.  Falls back
     # to kkt_prepare(x, 0).
     kkt_prepare_gn: Any = None
+    take_lanes: Any = None
 
 
 class IPMResult(NamedTuple):

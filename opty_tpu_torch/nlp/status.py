@@ -12,10 +12,6 @@ INFEASIBLE_PROBLEM_DETECTED = 2
 MAXIMUM_ITERATIONS_EXCEEDED = -1
 RESTORATION_FAILED = -2
 INVALID_NUMBER_DETECTED = -13
-# opty_tpu_torch only: the lane would have entered the feasibility
-# restoration phase, which this package does not provide yet; it is
-# retired at its last iterate and counts as not converged.
-RESTORATION_NOT_PORTED = -100
 
 STATUS_MESSAGES = {
     SOLVE_SUCCEEDED: (b'Algorithm terminated successfully at a locally '
@@ -35,6 +31,4 @@ STATUS_MESSAGES = {
     INVALID_NUMBER_DETECTED: (b'Algorithm received an invalid number (such '
                               b'as NaN or Inf) from the NLP; see also option '
                               b'check_derivatives_for_naninf.'),
-    RESTORATION_NOT_PORTED: b'Line search failed and the restoration '
-                            b'phase not yet ported; the lane was retired.',
 }

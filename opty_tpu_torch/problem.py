@@ -20,13 +20,23 @@ import torch
 
 from .config import default_dtype, resolve_device
 from .nlp.collocation import make_collocation_nlp_functions
-from .nlp.ipm import IPMOptions, IPMResult, check_options, solve_ipm
+from .nlp.ipm import IPMOptions, IPMResult, solve_ipm
 from .nlp.kkt import check_method
 from .nlp.status import STATUS_MESSAGES
 from .transcribe.collocator import ConstraintCollocator
 from .utils import parse_free
 
 __all__ = ['Problem']
+
+# Ipopt option names accepted by add_option (the reference's cyipopt
+# passthrough) and the IPMOptions fields they set
+_IPOPT_OPTION_MAP = {
+    'tol': 'tol',
+    'acceptable_tol': 'acceptable_tol',
+    'acceptable_iter': 'acceptable_iter',
+    'max_iter': 'max_iter',
+    'mu_init': 'mu_init',
+}
 
 
 class Problem:
@@ -153,6 +163,25 @@ class Problem:
     # ------------------------------------------------------------------
     # solver configuration
     # ------------------------------------------------------------------
+    def add_option(self, name, value):
+        """Sets a solver option by its Ipopt name (the reference's
+        cyipopt ``add_option``): ``tol``, ``acceptable_tol``,
+        ``acceptable_iter``, ``max_iter`` and ``mu_init`` map onto
+        IPMOptions; any other name is ignored with a warning."""
+        if name in _IPOPT_OPTION_MAP:
+            field = _IPOPT_OPTION_MAP[name]
+            caster = int if field in ('max_iter', 'acceptable_iter') \
+                else float
+            self._ipm_options = self._ipm_options._replace(
+                **{field: caster(value)})
+        else:
+            import warnings
+            warnings.warn(
+                "Solver option '{}' has no IPM mapping and is ignored "
+                '(output/print options have no meaning here; use '
+                'set_solver_options for native options).'.format(name),
+                stacklevel=2)
+
     def set_solver_options(self, factor_dtype=None, kkt_method=None,
                            **kwargs):
         """Directly set IPMOptions fields.
@@ -171,9 +200,7 @@ class Problem:
             self._refine_steps = kwargs.pop('refine_steps')
         if 'chunk_iters' in kwargs:
             self._chunk_iters = kwargs.pop('chunk_iters')
-        options = self._ipm_options._replace(**kwargs)
-        check_options(options)
-        self._ipm_options = options
+        self._ipm_options = self._ipm_options._replace(**kwargs)
 
     # ------------------------------------------------------------------
     # solving

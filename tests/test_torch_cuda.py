@@ -467,3 +467,30 @@ def test_scan_solve_on_card_equals_cpu(card):
     assert got['iterations'] == want['iterations']
     assert abs(got['obj_val'] - want['obj_val']) \
         <= 1e-10 * abs(want['obj_val'])
+
+
+def test_default_solve_with_restoration_on_card_equals_cpu(card):
+    """A solve with the library's default options (adaptive mu, the
+    second-order correction, restoration) from a start that enters
+    restoration (chip_smoke.py's phase 4c), through the PCR and block
+    kernels on the card, against the same solve through the plain
+    versions on the CPU."""
+    from opty_tpu_torch.models import swing_up_problem
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        prob = swing_up_problem(num_nodes=101, torque_bound=20.0, device=dev)
+        prob.set_solver_options(kkt_method='cr', factor_dtype=torch.float64)
+        x0 = np.random.default_rng(57).normal(size=prob.num_free)
+        pk.reset_launch_counts()
+        bk.reset_launch_counts()
+        out[dev] = prob.solve(x0)[1]
+        if dev == 'cuda':
+            assert pk.factor_launches > 0 and pk.downsweep_launches > 0
+            assert bk.inv_launches > 0
+    got, want = out['cuda'], out['cpu']
+    assert got['rest_iterations'] > 0 and want['rest_iterations'] > 0
+    assert got['status'] == want['status']
+    assert want['status'] in (0, 1)
+    assert abs(got['iterations'] - want['iterations']) <= 2
+    assert abs(got['obj_val'] - want['obj_val']) \
+        <= 1e-6 * abs(want['obj_val'])

@@ -7,7 +7,8 @@ second-order correction.
   iterations, its state crosses over through interop.state_from_numpy,
   and both solvers take one more iteration.
 * Full solves from seeds whose reference solve never enters the
-  restoration phase (not ported): same status and iteration count.
+  restoration phase: same status and iteration count (the default
+  options, restoration included, are in test_torch_solver_default.py).
 """
 
 import numpy as np
@@ -18,7 +19,8 @@ import jax.numpy as jnp
 
 from opty_tpu_torch import interop
 from opty_tpu_torch.models import swing_up_problem
-from opty_tpu_torch.nlp.status import STATUS_MESSAGES, RESTORATION_NOT_PORTED
+from opty_tpu_torch.nlp.status import (MAXIMUM_ITERATIONS_EXCEEDED,
+                                      STATUS_MESSAGES)
 from test_problem import build_pendulum
 
 N = 101
@@ -107,5 +109,6 @@ def test_result_round_trip():
     assert out['x'].shape == (1, prob.num_free)
     assert out['iterations'][0] <= 3
     assert set(out) >= {'x', 'status', 'iterations', 'obj_history'}
-    assert 'restoration phase not yet ported' in \
-        STATUS_MESSAGES[RESTORATION_NOT_PORTED].decode()
+    assert out['status'][0] == MAXIMUM_ITERATIONS_EXCEEDED
+    assert 'Maximum number of iterations exceeded' in \
+        STATUS_MESSAGES[int(out['status'][0])].decode()

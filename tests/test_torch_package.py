@@ -1,12 +1,13 @@
 """Package rules of opty_tpu_torch: no JAX and nothing of opty_tpu in
-its import graph, the card by default, and loud refusals of what is not
-ported yet."""
+its import graph, the card by default, the JAX package's default solver
+options accepted, and loud refusals of what is not ported yet."""
 
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,18 +55,35 @@ def test_card_is_the_default_device():
         swing_up_problem(num_nodes=11)
 
 
-def test_unported_options_raise():
-    prob = swing_up_problem(num_nodes=11, device='cpu')
-    with pytest.raises(NotImplementedError, match='monotone'):
-        prob.set_solver_options(mu_strategy='adaptive', use_soc=False)
-    with pytest.raises(NotImplementedError, match='second-order'):
-        prob.set_solver_options(mu_strategy='monotone', use_soc=True)
+def test_default_options_run_and_spike_raises():
+    """No solver option set: adaptive mu, the second-order correction
+    and restoration run through solve, solve_batch and solve_queue on
+    the CPU; the Ipopt-name options of add_option map onto IPMOptions;
+    the node-sharded 'spike' KKT method is still refused."""
+    prob = swing_up_problem(num_nodes=11, torque_bound=20.0, device='cpu')
+    opt = prob._ipm_options
+    assert opt.mu_strategy == 'adaptive' and opt.use_soc
+    assert opt.max_rest_visit > 0
+    prob.set_solver_options(mu_strategy='adaptive', use_soc=True)
     with pytest.raises(NotImplementedError, match="'spike'.*item 15"):
         prob.set_solver_options(kkt_method='spike')
-    # the JAX package's defaults (adaptive mu, SOC) are refused at the
-    # first solve too, never run silently
-    with pytest.raises(NotImplementedError):
-        prob.solve(torch.zeros(prob.num_free).numpy())
+    rng = np.random.default_rng(1)
+    x, info = prob.solve(rng.normal(size=prob.num_free))
+    assert info['status'] == 0 and info['iterations'] > 0
+    assert 'terminated successfully' in info['status_msg']
+    assert set(info) >= {'rest_iterations', 'mono_fallback'}
+    batch = prob.solve_batch(rng.normal(size=(2, prob.num_free)))
+    assert batch.status.shape == (2,)
+    queue = prob.solve_queue(rng.normal(size=(3, prob.num_free)),
+                             batch_size=2)
+    assert queue.status.shape == (3,)
+    assert np.all(np.isin(np.asarray(batch.status), (0, 1)))
+    assert np.all(np.isin(queue.status, (0, 1)))
+    prob.add_option('max_iter', 7)
+    prob.add_option('tol', 1e-6)
+    assert (prob._ipm_options.max_iter, prob._ipm_options.tol) == (7, 1e-6)
+    with pytest.warns(UserWarning, match='print_level'):
+        prob.add_option('print_level', 0)
 
 
 def test_cpu_defaults():
