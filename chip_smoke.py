@@ -21,6 +21,12 @@ Phases, each reported on its own line(s) with its wall time:
    product at 8 and 32 matrices (d = 5), at a whole node axis
    (16,032) and at the border's d = 4, beside torch.linalg.inv_ex and
    torch.bmm as yardsticks;
+3w. wide kernels: the wide variants (csrc/wide.cu) of the PCR factor
+   and downsweep at the nlink-9 chain's block (d = 50, b = 41, N = 60)
+   and of the block inverse at b = 1, 41 and 64, each at 1, 8 and 32
+   lanes, float32 and float64, against their plain versions, timed
+   L2-warm and L2-cold beside their bounds (the inverse beside
+   torch.linalg.inv_ex);
 4. reference: a small solve (N = 101, float64 factorization, monotone
    mu, no second-order correction) on the card against the same solve
    on the CPU (the plain versions), once with kkt_method='cr' (4) and
@@ -47,7 +53,18 @@ Phases, each reported on its own line(s) with its wall time:
    the same rows (JAX_DEFAULT_MEAN);
 6. profile: a few iterations of each path at 32 lanes, once counting
    host syncs and once under torch.profiler (device busy time, kernel
-   launches, the per-launch time of each hand-written kernel).
+   launches, the per-launch time of each hand-written kernel); the
+   nlink-9 chain at N = 60 on 8 lanes for 4 iterations;
+7a. nlink: the nlink-9 chain at N = 60 through ``n_link_cart_problem``
+   -> ``n_link_initial_guess`` -> ``Problem.solve`` with the options of
+   benchmarks/gait_scale.py --small-program, kkt_method='cr', a float64
+   factorization: it must converge; it is compared with the port's
+   recorded CPU run of the same solve (NLINK_CPU), and one iteration
+   from its state at a few iteration counts, taken by the card and by
+   the CPU, must agree to NLINK_STEP_TOL; counters reset just before
+   and read just after, the wide kernels required;
+7b. the same solve with the card's default factorization (float32 + 6
+   float64 refinement rounds).
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -114,6 +131,46 @@ REST_OBJ_TOL = 1e-6
 # (scripts/jax_default_queue.py, JAX on the CPU), times 1.25
 JAX_DEFAULT_MEAN = 38.40625
 DEFAULT_MEAN_FACTOR = 1.25
+# phase 3w: the wide variants (csrc/wide.cu) at the nlink-9 chain's KKT
+# block, d = 50, b = 41, N = 60 (models/nlink.py), at B lanes
+WIDE_D, WIDE_B, WIDE_NODES = 50, 41, 60
+WIDE_BATCHES = (1, 8, 32)
+WIDE_BORDERS = (1, 41, 64)
+WIDE_SLEEP = 5 * 10 ** 8          # cycles of the sleep kernel, ~250 ms
+# the wide factor and inverse run their plain versions' operations in
+# the same order (nvcc -fmad=false): bitwise equal on finite inputs;
+# the wide downsweep sums each row in order where the plain version's
+# matvec_nl lets torch reduce in its own
+TOL_WIDE_SWEEP = {'float64': 1e-11, 'float32': 1e-4}
+# phase 7: the nlink-9 chain at N = 60 solved with the options of
+# benchmarks/gait_scale.py --small-program, kkt_method='cr'.  7a, with a
+# float64 factorization, must converge, and is compared with the port's
+# CPU run of the same solve (the plain versions: ``python3 chip_smoke.py
+# --cpu-reference nlink``, 2,900 s on this repository's sandbox CPU, so
+# recorded here rather than run beside the card): the same status,
+# iterations within NLINK_ITER_SLACK, objectives within NLINK_OBJ_TOL
+# relative, printed met or not.  The two end apart: every iteration
+# agrees to round-off from a shared state, but along this path a
+# difference grows until the solves settle in different local minima
+# (PERF.md §6; the JAX package's own cr and scan runs end apart too).
+# So the phase fails where one iteration from the card's state at the
+# iteration counts NLINK_CROSSOVERS, taken by the card and by the CPU,
+# differs by more than NLINK_STEP_TOL relative.
+NLINK_LINKS, NLINK_NODES = 9, 60
+NLINK_OPTIONS = dict(max_iter=1500, mu_init=1e-5, use_soc=False,
+                     max_rest_visit=0, dw_decay='hold')
+NLINK_CPU = dict(status=0, iterations=321, obj=1.4428157973956592,
+                 inf_pr=5.073824049383369e-13, wall_s=2899.6, threads=4)
+NLINK_ITER_SLACK = 2
+NLINK_OBJ_TOL = 1e-6
+NLINK_CROSSOVERS = (1, 20, 100, 300)
+NLINK_STEP_TOL = 1e-8
+# the JAX package's own run of the same solve on the CPU (its default
+# kkt_method='scan' with a float64 factorization):
+# JAX_PLATFORMS=cpu python benchmarks/gait_scale.py --small-program, a
+# CPU run of this repository's sandbox, printed beside phase 7
+JAX_GAIT_CPU = dict(status=0, iterations=245, obj=1.8000567542274934,
+                    warm_solve_s=109.82, first_solve_s=299.1)
 
 
 def log(*args):
@@ -229,30 +286,35 @@ def rel_err(got, want):
 
 
 def inv_flops(d):
-    """FLOPs of one d x d pivoted inverse (one per add, multiply,
-    divide; the pivot search and swaps counted as none)."""
-    return sum((d - 1 - k) * (1 + 4 * d) for k in range(d)) \
-        + d * d * (2 * d + 1)
+    """FLOPs a d x d pivoted Gauss-Jordan inverse needs, done in place:
+    at each of d pivots one reciprocal, d products for the pivot row and
+    a multiply and an add for each of the d entries of the other d - 1
+    rows (the pivot search and swaps counted as none)."""
+    return d * (1 + d + 2 * d * (d - 1))
 
 
 def flop_counts(d, b, N, L, batch):
-    """FLOPs the two PCR kernels do on these shapes."""
+    """FLOPs the two PCR functions need on these shapes: a level's
+    inverse, A and B, the D and F updates, and Lb' and Ub' except at
+    the last level (nothing reads them there); then the final inverse
+    and Z = Dinv^T F."""
     inv = inv_flops(d)
     mm = d * d * (2 * d - 1)
-    level = inv + 6 * mm + 2 * d * d + 2 * d * b * (2 * d - 1) + 2 * d * b
-    factor = batch * N * (L * level + inv + d * b * (2 * d - 1))
+    level = inv + 4 * mm + 2 * d * d + 2 * d * b * (2 * d - 1) + 2 * d * b
+    factor = batch * N * (L * level + (L - 1) * 2 * mm + inv
+                          + d * b * (2 * d - 1))
     sweep = batch * N * L * (2 * d * (2 * d - 1) + 2 * d)
     return factor, sweep
 
 
-def pcr_bytes(es, batch, N, L):
+def pcr_bytes(es, batch, N, L, d=D, b=B_BORDER):
     """Bytes the PCR kernels must move: each input read once, each
     output written once (factor: D, E, F in, A, B, Dinv, Fp, Z out;
     downsweep: A, B, r in, r out)."""
-    n_dd = batch * D * D * N
-    n_db = batch * D * B_BORDER * N
+    n_dd = batch * d * d * N
+    n_db = batch * d * b * N
     return (es * (2 * n_dd + n_db + 2 * L * n_dd + n_dd + 2 * n_db),
-            es * (2 * L * n_dd + 2 * batch * D * N))
+            es * (2 * L * n_dd + 2 * batch * d * N))
 
 
 def check_pcr_shape(pk, name, dtype, batch, nodes, flush, plain):
@@ -347,6 +409,132 @@ def check_kernels(pk, name):
     return rec
 
 
+def wide_system(dtype, batch, d=WIDE_D, b=WIDE_B, nodes=WIDE_NODES,
+                seed=0):
+    """A diagonally dominant system at the wide block (the off-diagonal
+    blocks scaled by 1/d), so that every level stays well conditioned."""
+    import torch
+    rng = np.random.default_rng(seed)
+    Dm = rng.standard_normal((batch, d, d, nodes)) \
+        + 2.0 * d * np.eye(d)[:, :, None]
+    E = rng.standard_normal((batch, d, d, nodes)) / d
+    E[..., 0] = 0.0
+    F = 0.1 * rng.standard_normal((batch, d, b, nodes))
+    r = rng.standard_normal((batch, d, nodes))
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+    return to(Dm), to(E), to(F), to(r)
+
+
+def check_wide_kernels(pk, bk, name):
+    """Phase 3w: the wide variants against their plain versions: the
+    PCR factor (bitwise) and downsweep (TOL_WIDE_SWEEP) at d = 50,
+    b = 41, N = 60 and B in WIDE_BATCHES, the inverse (bitwise) at
+    b in WIDE_BORDERS and the same B, float32 and float64; each timed
+    L2-warm and L2-cold beside its bound, its plain version and (the
+    inverse) torch.linalg.inv_ex.  Fails unless each call went through
+    its wide counter.  Returns {kernel: [records]}."""
+    import torch
+    from opty_tpu_torch.ops.tridiag import num_levels
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
+    rec = {'pcr_factor_levels_wide': [], 'pcr_downsweep_wide': [],
+           'block_inv_wide': []}
+    L = num_levels(WIDE_NODES)
+    for batch in WIDE_BATCHES:
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).split('.')[-1]
+            where = '{} B={} d={} b={} N={}'.format(tag, batch, WIDE_D,
+                                                    WIDE_B, WIDE_NODES)
+            Dm, E, F, r = wide_system(dtype, batch)
+            pk.reset_launch_counts()
+            got = pk.pcr_factor_levels(Dm, E, F)
+            A, Bm = got[0], got[1]
+            s_got = pk.pcr_downsweep(A, Bm, r)
+            torch.cuda.synchronize()
+            if (pk.wide_factor_launches, pk.wide_downsweep_launches) != (1, 1):
+                fail('phase 3w {}: the wide kernels were not launched'.format(
+                    where))
+            want = pk.pcr_factor_levels_plain(Dm, E, F)
+            s_want = pk.pcr_downsweep_plain(A, Bm, r)
+            fabs = max(rel_err(g, w)[0] for g, w in zip(got, want))
+            sabs, serr = rel_err(s_got, s_want)
+            if not all(torch.isfinite(g).all().item() for g in got) \
+                    or fabs != 0.0:
+                fail('wide pcr_factor_levels {}: not bitwise equal to its '
+                     'plain version (max abs err {:.3e})'.format(where, fabs))
+            if not torch.isfinite(s_got).all().item() \
+                    or serr > TOL_WIDE_SWEEP[tag]:
+                fail('wide pcr_downsweep {}: rel err {:.3e}'.format(where,
+                                                                    serr))
+            f_bytes, s_bytes = pcr_bytes(Dm.element_size(), batch,
+                                         WIDE_NODES, L, WIDE_D, WIDE_B)
+            f_ops, s_ops = flop_counts(WIDE_D, WIDE_B, WIDE_NODES, L, batch)
+            for kname, fn, plain_fn, aerr, err, nbytes, ops in (
+                    ('pcr_factor_levels_wide',
+                     lambda: pk.pcr_factor_levels(Dm, E, F),
+                     lambda: pk.pcr_factor_levels_plain(Dm, E, F), fabs,
+                     0.0, f_bytes, f_ops),
+                    ('pcr_downsweep_wide', lambda: pk.pcr_downsweep(A, Bm, r),
+                     lambda: pk.pcr_downsweep_plain(A, Bm, r), sabs, serr,
+                     s_bytes, s_ops)):
+                # a wide factor call queues L + 1 launches and allocates
+                # its scratch: a longer sleep keeps the device behind
+                ms = device_ms(fn, reps=20, sleep_cycles=WIDE_SLEEP)[0]
+                cold = cold_ms(fn, flush, reps=10, sleep_cycles=WIDE_SLEEP)
+                plain_ms = timed(plain_fn, 1, 1)
+                bms, by = bound(nbytes, ops, name, tag)
+                rec[kname].append(dict(
+                    dtype=tag, batch=batch, d=WIDE_D, b=WIDE_B,
+                    nodes=WIDE_NODES, max_abs_err=aerr, max_rel_err=err,
+                    ms=ms, cold_ms=cold, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, bytes=nbytes, flops=ops, library_ms=None))
+                log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e}; ms '
+                    'warm={:.5f} cold={:.5f} plain_ms={:.2f} bound_us={:.2f} '
+                    '({}; {:.1f} MB, {:.3f} GFLOP) cold/bound={:.1f}'.format(
+                        kname, where, err, aerr, ms, cold, plain_ms,
+                        bms * 1e3, by, nbytes / 1e6, ops / 1e9, cold / bms))
+    for b in WIDE_BORDERS:
+        for batch in WIDE_BATCHES:
+            for dtype in (torch.float32, torch.float64):
+                tag = str(dtype).split('.')[-1]
+                rng = np.random.default_rng(batch + b)
+                A = torch.as_tensor(rng.standard_normal((batch, b, b))
+                                    + 2.0 * b * np.eye(b), dtype=dtype,
+                                    device='cuda')
+                bk.reset_launch_counts()
+                got = bk.block_inv(A)
+                torch.cuda.synchronize()
+                aerr, err = rel_err(got, bk.block_inv_plain(A))
+                where = '{} b={} B={}'.format(tag, b, batch)
+                if bk.wide_inv_launches != 1:
+                    fail('phase 3w {}: block_inv did not launch its wide '
+                         'variant'.format(where))
+                if not torch.isfinite(got).all().item() or aerr != 0.0:
+                    fail('wide block_inv {}: not bitwise equal to its plain '
+                         'version (max abs err {:.3e})'.format(where, aerr))
+                ms = device_ms(lambda: bk.block_inv(A),
+                               sleep_cycles=WIDE_SLEEP)[0]
+                cold = cold_ms(lambda: bk.block_inv(A), flush, reps=10,
+                               sleep_cycles=WIDE_SLEEP)
+                plain_ms = timed(lambda: bk.block_inv_plain(A), 5, 1)
+                # inv_ex waits on the device inside a call at b = 41, so
+                # no sleep can keep it queued: CUDA events around calls
+                # in a host loop instead
+                library_ms = timed(lambda: torch.linalg.inv_ex(A)[0], 20)
+                nbytes = 2 * batch * b * b * A.element_size()
+                bms, by = bound(nbytes, batch * inv_flops(b), name, tag)
+                rec['block_inv_wide'].append(dict(
+                    dtype=tag, batch=batch, d=b, max_abs_err=aerr,
+                    max_rel_err=err, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bms, bound_by=by))
+                log('kernel block_inv_wide {}: max_abs_err={:.3e}; ms '
+                    'warm={:.5f} cold={:.5f} plain_ms={:.3f} library_ms '
+                    '(torch.linalg.inv_ex)={:.5f} bound_us={:.4f} ({})'
+                    .format(where, aerr, ms, cold, plain_ms, library_ms,
+                            bms * 1e3, by))
+    del flush
+    return rec
+
+
 def bound(nbytes, ops, name, tag):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate of their type (float64 outside the
@@ -431,10 +619,10 @@ def scan_system(dtype, batch, nodes, d=D, b=B_BORDER, seed=0):
 
 def scan_counts(d, b, N, batch, es):
     """(bytes, FLOPs) of scan_factor and of scan_solve: each input read
-    once, each output written once; the factor's inverse counted as the
-    Gauss-Jordan elimination it runs (4 d^3 - 2 d^2)."""
+    once, each output written once; each inverse counted as the pivoted
+    Gauss-Jordan inverse needs (``inv_flops``)."""
     mm = lambda m, n, q: m * n * (2 * q - 1)        # (m x q) @ (q x n)
-    gj = lambda n: 4 * n ** 3 - 2 * n ** 2
+    gj = inv_flops
     f_node = (2 * mm(d, d, d) + d * d + gj(d) + mm(d, b, d) + d * b
               + mm(d, b, d) + mm(b, b, d) + b * b)
     s_node = (2 * (mm(d, 1, d) + d) + mm(d, 1, d) + mm(b, 1, d) + b
@@ -556,12 +744,16 @@ def reference_solve(kkt_method, counters):
 
 
 def launch_counts(pk, bk, sk):
+    """The kernels' launch counters."""
     return {'pcr_factor_levels': pk.factor_launches,
             'pcr_downsweep': pk.downsweep_launches,
             'block_inv': bk.inv_launches,
             'block_matmul': bk.matmul_launches,
             'scan_factor': sk.factor_launches,
-            'scan_solve': sk.solve_launches}
+            'scan_solve': sk.solve_launches,
+            'pcr_factor_levels_wide': pk.wide_factor_launches,
+            'pcr_downsweep_wide': pk.wide_downsweep_launches,
+            'block_inv_wide': bk.wide_inv_launches}
 
 
 def reset_counts(pk, bk, sk):
@@ -676,13 +868,46 @@ def rest_solve(dev, kkt_method, seed):
 
 def cpu_reference(kkt_method):
     """``--cpu-reference METHOD``: phase 4c's CPU solves (the plain
-    versions), one JSON line each, in a child process."""
+    versions), one JSON line each, in a child process; ``nlink``: phase
+    7a's solve on the CPU (NLINK_CPU records it)."""
     import torch
     sys.path.insert(0, HERE)
+    if kkt_method == 'nlink':
+        prob, guess = nlink_problem('cpu')
+        _, rec = nlink_solve(prob, guess, torch.float64)
+        print(json.dumps(dict(rec, threads=torch.get_num_threads())),
+              flush=True)
+        return
     torch.set_num_threads(1)
     for seed in REST_SEEDS:
         print(json.dumps(dict(seed=seed, **rest_solve('cpu', kkt_method,
                                                       seed))), flush=True)
+
+
+def nlink_problem(dev):
+    """The nlink-9 chain's reach at N = 60 (models/nlink.py) on ``dev``
+    and its inverse-dynamics initial guess."""
+    from opty_tpu_torch.models.nlink import (n_link_cart_problem,
+                                             n_link_initial_guess)
+    prob, q_start = n_link_cart_problem(NLINK_LINKS, NLINK_NODES,
+                                        device=dev)
+    return prob, n_link_initial_guess(prob, q_start)
+
+
+def nlink_solve(prob, guess, factor_dtype):
+    """One phase-7 solve: NLINK_OPTIONS, kkt_method='cr', a
+    ``factor_dtype`` factorization.  Returns (x, record)."""
+    import torch
+    prob.set_solver_options(kkt_method='cr', factor_dtype=factor_dtype,
+                            **NLINK_OPTIONS)
+    t0 = time.time()
+    x, info = prob.solve(guess)
+    if prob.device.type == 'cuda':
+        torch.cuda.synchronize()
+    return x, dict(status=info['status'], iterations=info['iterations'],
+                   obj=info['obj_val'], inf_pr=info['inf_pr'],
+                   inf_du=info['inf_du'], delta_w=info['delta_w'],
+                   wall_s=time.time() - t0)
 
 
 def start_cpu_references():
@@ -759,21 +984,27 @@ def restoration_phase(counters, kkt_method, child, required):
     return inner
 
 
-def iteration_profile(counters, label, lanes, iters, options):
+def iteration_profile(counters, label, lanes, iters, options, setup=None):
     """Where an iteration's time goes: one cold batch of ``lanes`` lanes
     for ``iters`` iterations (the initialization included) with
     ``options``, once counting host syncs (torch's sync debug mode warns
     on each) and once under torch.profiler, tracing the device only, for
-    its busy time.  Returns ({kernel: device ms per launch in the solve}
-    of the hand-written kernels the profile saw, {kernel: launches per
+    its busy time.  The problem is the swing-up at N = NODES from rows
+    of bench.py's queue, or ``setup(lanes)`` -> (problem, starts).
+    Returns ({kernel: device ms per call in the solve} of the
+    hand-written kernels the profile saw, {kernel: launches per
     iteration})."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
     from opty_tpu_torch.models import swing_up_problem
-    prob = swing_up_problem(num_nodes=NODES)
-    prob.set_solver_options(max_iter=iters, **options)
-    free = np.random.default_rng(7).standard_normal((lanes, prob.num_free))
+    if setup is None:
+        prob = swing_up_problem(num_nodes=NODES)
+        free = np.random.default_rng(7).standard_normal((lanes,
+                                                         prob.num_free))
+    else:
+        prob, free = setup(lanes)
+    prob.set_solver_options(**dict(options, max_iter=iters))
     prob.solve_batch(free)                       # warm caches and allocator
     torch.cuda.synchronize()
     reset_counts(*counters)
@@ -781,7 +1012,8 @@ def iteration_profile(counters, label, lanes, iters, options):
     prob.solve_batch(free)
     torch.cuda.synchronize()
     plain_wall = time.time() - t0
-    per_iter = {k: n / iters for k, n in launch_counts(*counters).items()}
+    launched = launch_counts(*counters)
+    per_iter = {k: n / iters for k, n in launched.items()}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
@@ -820,7 +1052,7 @@ def iteration_profile(counters, label, lanes, iters, options):
                            e.key[:90], e.self_device_time_total / e.count))
     in_solve = in_solve_times(events)
     for kname, ms in in_solve.items():
-        log('profile {} {}: {:.2f} us per launch in the solve'.format(
+        log('profile {} {}: {:.2f} us per call in the solve'.format(
             label, kname, ms * 1e3))
     return in_solve, per_iter
 
@@ -832,39 +1064,180 @@ def phase(title, fn, *args):
     return out
 
 
-# (name, source, the TPU kernel it replaces, its device function)
+# (name, source, the TPU kernel it replaces, its device functions: the
+# first launches once per call)
 KERNELS = (
     ('pcr_factor_levels', 'opty_tpu_torch/csrc/pcr.cu',
-     'opty_tpu/ops/pallas_pcr.py:216', 'pcr_factor_kernel'),
+     'opty_tpu/ops/pallas_pcr.py:216', ('pcr_factor_kernel',)),
     ('pcr_downsweep', 'opty_tpu_torch/csrc/pcr.cu',
-     'opty_tpu/ops/pallas_pcr.py:250', 'pcr_downsweep_kernel'),
+     'opty_tpu/ops/pallas_pcr.py:250', ('pcr_downsweep_kernel',)),
     ('block_inv', 'opty_tpu_torch/csrc/blocks.cu',
-     'opty_tpu/ops/pallas_blocks.py:42', 'block_inv_kernel'),
+     'opty_tpu/ops/pallas_blocks.py:42', ('block_inv_kernel',)),
     ('block_matmul', 'opty_tpu_torch/csrc/blocks.cu',
-     'opty_tpu/ops/pallas_blocks.py:84', 'block_matmul_kernel'),
+     'opty_tpu/ops/pallas_blocks.py:84', ('block_matmul_kernel',)),
     ('scan_factor', 'opty_tpu_torch/csrc/scan.cu',
-     'opty_tpu/ops/pallas_blocks.py:42,84', 'scan_factor_kernel'),
+     'opty_tpu/ops/pallas_blocks.py:42,84', ('scan_factor_kernel',)),
     ('scan_solve', 'opty_tpu_torch/csrc/scan.cu',
-     'opty_tpu/ops/pallas_blocks.py:42,84', 'scan_solve_kernel'),
+     'opty_tpu/ops/pallas_blocks.py:42,84', ('scan_solve_kernel',)),
+    ('pcr_factor_levels_wide', 'opty_tpu_torch/csrc/wide.cu',
+     'opty_tpu/ops/pallas_pcr.py:216', ('pcr_wide_init', 'pcr_wide_level')),
+    ('pcr_downsweep_wide', 'opty_tpu_torch/csrc/wide.cu',
+     'opty_tpu/ops/pallas_pcr.py:250', ('pcr_wide_downsweep',)),
+    ('block_inv_wide', 'opty_tpu_torch/csrc/wide.cu',
+     'opty_tpu/ops/pallas_blocks.py:42', ('block_inv_wide_kernel',)),
 )
+WIDE_KERNELS = ('pcr_factor_levels_wide', 'pcr_downsweep_wide',
+                'block_inv_wide')
 
 
 def in_solve_times(events):
-    """{kernel: device ms per launch} over the profiler's events of the
-    hand-written kernels (every instantiation of a kernel together)."""
-    total, count = {}, {}
+    """{kernel: device ms per call} over the profiler's events of the
+    hand-written kernels (every instantiation of a kernel together; a
+    call of the wide factor is one pcr_wide_init and L pcr_wide_level
+    launches), and {device function: device ms per launch}."""
+    total, calls, per_launch = {}, {}, {}
     for e in events:
-        for kname, _, _, symbol in KERNELS:
-            if symbol + '<' in e.key:
+        for kname, _, _, symbols in KERNELS:
+            for i, symbol in enumerate(symbols):
+                if symbol + '<' not in e.key:
+                    continue
                 total[kname] = total.get(kname, 0.0) \
                     + e.self_device_time_total
-                count[kname] = count.get(kname, 0) + e.count
-    return {k: total[k] / count[k] / 1e3 for k in total}
+                if i == 0:
+                    calls[kname] = calls.get(kname, 0) + e.count
+                t, c = per_launch.get(symbol, (0.0, 0))
+                per_launch[symbol] = (t + e.self_device_time_total,
+                                      c + e.count)
+    out = {k: total[k] / calls[k] / 1e3 for k in total if calls.get(k)}
+    out.update({'launch ' + s: t / c / 1e3
+                for s, (t, c) in per_launch.items()})
+    return out
 
 
 def pick(records, **where):
     return next(r for r in records
                 if all(r[k] == v for k, v in where.items()))
+
+
+def nlink_crossovers(prob, guess, ks, cpu_prob=None):
+    """Card against CPU one iteration at a time from a shared state: the
+    card's ``prob`` (phase 7a's options, float64 factor) runs to each
+    iteration count k in ``ks`` in one chunk from the last; there its
+    state goes to the CPU (``interop.state_from_numpy``), both take one
+    iteration from it, and the next iterates are compared.  Returns
+    {k: {'x', 'y', 'zL', 'zU': max |difference| / max |card's|,
+    'mono_equal', 'mu'}}."""
+    import torch
+    from opty_tpu_torch import interop
+    if cpu_prob is None:
+        cpu_prob, _ = nlink_problem('cpu')
+
+    def solver(p, chunk):
+        """(run_cold, run_resume) of ``p`` running ``chunk`` iterations a
+        call (the chunk is fixed when the solver is built)."""
+        p.set_solver_options(kkt_method='cr', factor_dtype=torch.float64,
+                             chunk_iters=chunk, **NLINK_OPTIONS)
+        return p._build_solver()[1:]
+
+    card_cold, card_step = solver(prob, 1)
+    cpu_step = solver(cpu_prob, 1)[1]
+    free = torch.as_tensor(guess, device='cuda')[None]
+    cpu_free = torch.as_tensor(guess)[None]
+    rel = lambda a, b: float(np.max(np.abs(a - b))
+                             / max(np.max(np.abs(b)), 1e-300))
+    out = {}
+    _, state = card_cold(free)
+    for k in sorted(ks):
+        it = int(state.it[0])
+        if it < k and not bool(state.done.all()):
+            _, state = solver(prob, k - it)[1](free, state)
+        if bool(state.done.all()) or int(state.it[0]) != k:
+            break
+        _, nxt = card_step(free, state)
+        shared = interop.state_from_numpy(
+            {f: v.detach().cpu().numpy()
+             for f, v in state._asdict().items()}, 'cpu')
+        _, got = cpu_step(cpu_free, shared)
+        out[k] = dict(
+            mu=float(nxt.mu[0]),
+            mono_equal=bool(nxt.mono[0].item() == got.mono[0].item()),
+            **{f: rel(getattr(got, f)[0].numpy(),
+                      getattr(nxt, f)[0].cpu().numpy())
+               for f in ('x', 'y', 'zL', 'zU')})
+        state = nxt
+    for p in (prob, cpu_prob):
+        p.set_solver_options(chunk_iters=None)
+    return out
+
+
+def nlink_path(counters, label, prob, guess, factor_dtype, reference=None):
+    """Phase 7: the nlink-9 solve on the card through ``Problem.solve``
+    (NLINK_OPTIONS, kkt_method='cr', a ``factor_dtype`` factorization);
+    counters reset just before and read just after.  Fails unless the
+    wide kernels were launched and the solution is finite and, where
+    converged, feasible.  With a
+    ``reference`` (the CPU's record) it prints whether the two agree in
+    status, iterations (within NLINK_ITER_SLACK) and objective
+    (NLINK_OBJ_TOL), and fails unless the solve converged and every
+    crossover of ``nlink_crossovers`` at NLINK_CROSSOVERS agrees to
+    NLINK_STEP_TOL.  Returns (launches, record)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    x, rec = nlink_solve(prob, guess, factor_dtype)
+    launches = launch_counts(*counters)
+    if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
+        fail('{}: the solution has the wrong shape or is not finite'.format(
+            label))
+    worst = float(np.max(np.abs(prob.constraints(x))))
+    history = prob.obj_value
+    log('{}: nlink-{} N={} kkt_method=cr factor {}: status={} iterations={} '
+        'obj={:.12g} inf_pr={:.3e} inf_du={:.3e} delta_w={:.3e} worst '
+        'constraint={:.3e} wall_s={:.2f} ({:.1f} ms an iteration); '
+        'objective after iterations 30/60/300: {}; launches={}'.format(
+            label, NLINK_LINKS, NLINK_NODES, str(factor_dtype).split('.')[-1],
+            rec['status'], rec['iterations'], rec['obj'], rec['inf_pr'],
+            rec['inf_du'], rec['delta_w'], worst, rec['wall_s'],
+            rec['wall_s'] / max(rec['iterations'], 1) * 1e3,
+            [float(history[k - 1]) for k in (30, 60, 300)
+             if k <= len(history)], json.dumps(launches)))
+    for kname in WIDE_KERNELS:
+        if launches[kname] == 0:
+            fail('{} was not launched on the {}'.format(kname, label))
+    if rec['status'] in (0, 1) and worst > 1e-6:
+        fail('{}: the converged solution violates its constraints'.format(
+            label))
+    if reference is not None:
+        rel = abs(rec['obj'] - reference['obj']) / abs(reference['obj'])
+        log('{}: the CPU (plain versions, recorded): status={} iterations={} '
+            'obj={:.12g}; obj rel diff={:.2e}'.format(
+                label, reference['status'], reference['iterations'],
+                reference['obj'], rel))
+        met = (rec['status'] == reference['status']
+               and abs(rec['iterations'] - reference['iterations'])
+               <= NLINK_ITER_SLACK and rel <= NLINK_OBJ_TOL)
+        log('{}: card against the CPU run, the same status, iterations '
+            'within {} and objectives within {:.0e} relative: {}'.format(
+                label, NLINK_ITER_SLACK, NLINK_OBJ_TOL,
+                'met' if met else 'NOT MET (see the one-iteration '
+                'crossovers below)'))
+        if rec['status'] not in (0, 1):
+            fail('{}: the float64 solve did not converge'.format(label))
+        steps = nlink_crossovers(prob, guess, NLINK_CROSSOVERS)
+        missing = [k for k in NLINK_CROSSOVERS
+                   if k < rec['iterations'] and k not in steps]
+        if missing:
+            fail('{}: no crossover at iterations {}'.format(label, missing))
+        worst = max(max(v[f] for f in ('x', 'y', 'zL', 'zU'))
+                    for v in steps.values())
+        log('{}: one iteration from the card\'s state at iterations {}, card '
+            'against CPU: largest relative difference of x, y, zL, zU {:.3e} '
+            '({})'.format(label, sorted(steps), worst, json.dumps(steps)))
+        if worst > NLINK_STEP_TOL or not all(v['mono_equal']
+                                             for v in steps.values()):
+            fail('{}: an iteration from a shared state differs between the '
+                 'card and the CPU'.format(label))
+    return launches, rec
 
 
 def kernel_records(pcr, scan, blocks, launches, in_solve):
@@ -886,7 +1259,24 @@ def kernel_records(pcr, scan, blocks, launches, in_solve):
                      launches_in_restoration={
                          m: launches['rest_' + m][kname]
                          for m in ('cr', 'scan')})
-        if kname in pcr or kname in scan:
+        if kname in WIDE_KERNELS:
+            shapes = blocks[kname]
+            where = dict(dtype='float32', batch=1)
+            if kname == 'block_inv_wide':
+                where['d'] = WIDE_B
+            main = pick(shapes, **where)
+            entry.update(
+                path='nlink', launches=launches['nlink'][kname],
+                launches_float64_path=launches['nlink_f64'][kname],
+                max_abs_err=max(r['max_abs_err'] for r in shapes),
+                max_rel_err=max(r['max_rel_err'] for r in shapes),
+                dtype=main['dtype'], batch=1, ms=main['ms'],
+                cold_ms=main['cold_ms'],
+                in_solve_ms=in_solve['nlink'].get(kname),
+                plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                bound_by=main['bound_by'], library_ms=main['library_ms'],
+                shapes=shapes)
+        elif kname in pcr or kname in scan:
             shapes = pcr.get(kname) or scan[kname]
             path = 'cr' if kname in pcr else 'scan'
             main, other = (pick(shapes, dtype=tag, batch=BATCH, nodes=NODES)
@@ -975,6 +1365,8 @@ def run(torch, counters, pk, bk, sk, children):
     scan = phase('3 scan kernels', check_scan_kernels, sk, name)
     phase('3 empty kernel', empty_kernel_ms, bk)
     blocks = phase('3 block kernels', check_block_kernels, bk, name)
+    # 3w. the wide variants at the nlink-9 block
+    wide = phase('3w wide kernels', check_wide_kernels, pk, bk, name)
 
     # 4. small reference solves, card against CPU
     phase('4 reference cr', reference_solve, 'cr', counters)
@@ -1035,12 +1427,44 @@ def run(torch, counters, pk, bk, sk, children):
         '{:.3f}, default {:.3f}; the corrector and the SOC add {:.3f} '
         'solves an iteration'.format(solves['cr'], solves['default'],
                                      solves['default'] - solves['cr']))
+    # the nlink-9 chain at N = 60 (phase 7's problem, built here): 8
+    # lanes from its initial guess and small perturbations of it, the
+    # card's default factorization
+    prob, guess = phase('7 nlink build', nlink_problem, 'cuda')
+    rng = np.random.default_rng(3)
+
+    def nlink_lanes(lanes):
+        return prob, guess[None] + 0.01 * rng.standard_normal(
+            (lanes, guess.size))
+    profiles['nlink'] = phase(
+        '6 profile nlink', iteration_profile, counters, 'nlink', 8, 4,
+        dict(NLINK_OPTIONS, kkt_method='cr', factor_dtype=torch.float32),
+        nlink_lanes)
     in_solve = {p: v[0] for p, v in profiles.items()}
 
+    # 7a. the nlink-9 solve, float64 factorization, against the CPU's;
+    # 7b. the same with the card's default factorization
+    from opty_tpu_torch.config import default_factor_dtype
+    nlink_f64, rec_f64 = phase(
+        '7a nlink float64', nlink_path, counters, 'nlink float64', prob,
+        guess, torch.float64, NLINK_CPU)
+    nlink_def, rec_def = phase(
+        '7b nlink default', nlink_path, counters, 'nlink default', prob,
+        guess, default_factor_dtype(prob.device))
+    log('nlink-{} N={} ({}): float64 factor {} in {} iterations, {:.2f} s; '
+        'the card\'s default (float32 factor + 6 rounds) {} in {} '
+        'iterations, {:.2f} s; the JAX package on the CPU: {}'.format(
+            NLINK_LINKS, NLINK_NODES, smi, rec_f64['status'],
+            rec_f64['iterations'], rec_f64['wall_s'], rec_def['status'],
+            rec_def['iterations'], rec_def['wall_s'],
+            json.dumps(JAX_GAIT_CPU)))
+
+    blocks.update(wide)
     print(json.dumps({'kernels': kernel_records(
         pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches,
                             'default': def_launches, 'rest_cr': rest_cr,
-                            'rest_scan': rest_scan}, in_solve)}),
+                            'rest_scan': rest_scan, 'nlink': nlink_def,
+                            'nlink_f64': nlink_f64}, in_solve)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -5,9 +5,11 @@ dynamics lowered to batched torch residual, Jacobian and Hessian
 kernels, and the filter interior-point solver over the structured KKT
 system.  Its factorizations run in hand-written CUDA kernels: the
 cyclic-reduction factor and downsweep (ops/pcr_kernels.py,
-csrc/pcr.cu) and the scan path's block inverse and product
-(ops/block_kernels.py, csrc/blocks.cu).  Entry points run on the card
-unless the caller passes ``device='cpu'``.
+csrc/pcr.cu, and csrc/wide.cu for blocks up to d = 64), the scan
+path's factor and solve (ops/scan_kernels.py, csrc/scan.cu) and the
+block inverse and product (ops/block_kernels.py, csrc/blocks.cu).
+Entry points run on the card unless the caller passes
+``device='cpu'``.
 Imports no JAX and nothing of opty_tpu.
 """
 

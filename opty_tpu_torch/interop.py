@@ -9,15 +9,18 @@ identical state this way.
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .nlp.ipm_types import IPMResult, IPMState
 
 __all__ = ['state_from_numpy', 'result_to_numpy']
 
 
-def state_from_numpy(d, device='cpu'):
-    """An ``IPMState`` of tensors on ``device`` from a dict of numpy
-    arrays keyed by the IPMState fields.  The lane axis is optional: a
-    single-instance state (``x`` of shape (n,)) gets a lane axis of 1."""
+def state_from_numpy(d, device=None):
+    """An ``IPMState`` of tensors on ``device`` (None: the card) from a
+    dict of numpy arrays keyed by the IPMState fields.  The lane axis is
+    optional: a single-instance state (``x`` of shape (n,)) gets a lane
+    axis of 1."""
+    device = resolve_device(device)
     single = np.asarray(d['x']).ndim == 1
     fields = {}
     for name in IPMState._fields:

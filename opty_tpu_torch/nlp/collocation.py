@@ -2,9 +2,10 @@
 
 The counterpart of opty_tpu/nlp/collocation.py for ``kkt_method``
 ``'scan'`` and ``'cr'``.  Builds the ``IPMFunctions`` over a leading
-lane axis B: the
-transcription (one free vector at a time) is vmapped over the lanes
-with ``torch.func.vmap``; the KKT assembly, factorization and refined
+lane axis B: the transcription (one free vector at a time, either
+integration method, with the unknown parameters and a variable node
+interval as border variables w) is vmapped over the lanes with
+``torch.func.vmap``; the KKT assembly, factorization and refined
 solve (nlp/kkt.py) take the lane axis directly.  The Lagrangian Hessian
 is exact: per-interval EoM blocks from the collocator plus the
 objective/instance part from colored Hessian-vector products
@@ -20,10 +21,23 @@ one-round re-solve) and ``kkt_solve_feasibility`` complete the
 ``IPMFunctions`` contract; ``take_lanes`` narrows the functions to a
 subset of the lanes (a restoration visit runs on the entering lanes
 only).
+
+On the card an iteration's derivative passes are many small operations
+dispatched from the host (the 9-link chain's Hessian blocks and
+curvature product are tens of thousands, most of them through torch's
+Python path for the zero tangents of forward-over-reverse).  So there
+``kkt_prepare``, ``lagrangian_hvp``, ``eval_point`` and the plain
+evaluations of the objective, its gradient and the constraints run as
+CUDA graphs (``_graphed``), captured at their first call for each lane
+count (kept on the collocator, so later solves of the problem replay
+them); the same kernels run, so the values do not change.  The CPU and
+calls inside a torch.func transform run eagerly.
 """
 
+import gc
+
 import torch
-from torch.func import vmap
+from torch.func import jvp, vjp, vmap
 
 from ..config import default_factor_dtype, default_kkt_method
 from ..transcribe.hessian import make_structured_scalar_hessian
@@ -35,6 +49,66 @@ from .kkt import (KKTBlocks, check_method, factor_kkt, factor_kkt_cr,
 __all__ = ['make_collocation_nlp_functions', 'compute_scaling']
 
 _MAX_GRADIENT = 100.0
+
+
+class _graphed:
+    """``fn(*tensors)`` (a tensor, a tuple or a dict of tensors out) replayed
+    from a CUDA graph captured for each input signature at its first
+    call; on the CPU ``fn`` itself.  Inputs are copied into the captured
+    buffers and outputs cloned out of them, so a later replay changes
+    no result already returned."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphs = {}
+
+    def __call__(self, *args):
+        if args[0].device.type != 'cuda':
+            return self.fn(*args)
+        key = tuple((a.shape, a.dtype, a.device) for a in args)
+        if key not in self.graphs:
+            static = [a.clone() for a in args]
+            if not self.graphs:
+                # warm-up outside the first capture (lazy initialisation
+                # of handles and kernels); later lane counts reuse it
+                side = torch.cuda.Stream(args[0].device)
+                side.wait_stream(torch.cuda.current_stream(args[0].device))
+                with torch.cuda.stream(side):
+                    self.fn(*static)
+                torch.cuda.current_stream(args[0].device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # no cyclic garbage collection inside the capture: a dead
+            # problem's graphs freed there would invalidate it (the
+            # capture no longer collects before it begins)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    out = self.fn(*static)
+            finally:
+                if collecting:
+                    gc.enable()
+            self.graphs[key] = (graph, static, out)
+        graph, static, out = self.graphs[key]
+        for buf, a in zip(static, args):
+            buf.copy_(a)
+        graph.replay()
+        if isinstance(out, dict):
+            return {k: v.clone() for k, v in out.items()}
+        if isinstance(out, tuple):
+            return tuple(v.clone() for v in out)
+        return out.clone()
+
+
+def _outside_transforms(eager, graphed):
+    """``graphed`` where no torch.func transform is active (the solver's
+    plain evaluations), ``eager`` inside one (a vjp through the
+    function): a graph's replay is not differentiable."""
+    def call(*args):
+        if torch._C._are_functorch_transforms_active():
+            return eager(*args)
+        return graphed(*args)
+    return call
 
 
 def compute_scaling(col, gradient, x0):
@@ -95,6 +169,7 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
     N = col.num_collocation_nodes
     o = col.num_instance_constraints
     ni = N - 1
+    be = col.integration_method == 'backward euler'
     dtype = col._dtype
     device = col._device
     if kkt_method is None:
@@ -173,8 +248,11 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         C = C * dn[:, :, None]
         if o:
             G = G * di[:, None]
-        # constraint block k couples z_{k-1}, z_k (k = 1..N-1); backward
-        # Euler interval i: cur = i+1 (= k), adj = i (= k-1)
+        # constraint block k couples z_{k-1}, z_k (k = 1..N-1): backward
+        # Euler interval i: cur = i+1 (= k), adj = i (= k-1); midpoint
+        # interval i: cur = i (= k-1), adj = i+1 (= k)
+        if not be:
+            A, B = B, A
         zM = A.new_zeros((1, M, nz))
         Gz, Gw = split_instance_jac(G)
         return dict(P=torch.cat([zM, A], dim=0), Q=torch.cat([zM, B], dim=0),
@@ -323,19 +401,64 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         fac = kkt_factor(prep, sigma_x, torch.ones_like(rc), True)
         return kkt_apply_soc(fac, torch.zeros_like(sigma_x), rc)
 
+    def prepare_lanes(x, y, sfB, dn, di):
+        """kkt_prepare at (x, y), (B, ·) each, with the lanes' scales."""
+        return vmap(prepare_one)(x, y, sfB, dn, di)
+
+    def objective_lanes(free, sfB):
+        return sfB * vmap(objective)(free)
+
+    def gradient_lanes(free, sfB):
+        return sfB[:, None] * vmap(grad_fn)(free)
+
+    def constraints_lanes(free, dn, di):
+        res, inst = vmap(col.constraints_nodewise)(free)
+        return join_con(res * dn, inst * di)
+
+    def point_lanes(x, y, sfB, dn, di):
+        """(gradient, constraints, J^T y) at x: the solver's evaluation
+        of a new iterate."""
+        c, vjp_fn = vjp(lambda f: constraints_lanes(f, dn, di), x)
+        return gradient_lanes(x, sfB), c, vjp_fn(y)[0]
+
+    def hvp_lanes(x, y, dx, sfB, dn, di):
+        """The curvature test's product: the jvp of the Lagrangian
+        gradient, as steps.regularized_direction forms it."""
+        def lag_grad(xx):
+            _, vjp_fn = vjp(lambda f: constraints_lanes(f, dn, di), xx)
+            return gradient_lanes(xx, sfB) + vjp_fn(y)[0]
+        return jvp(lag_grad, (x,), (dx,))[1]
+
+    # one capture per problem, objective and lane count: the graphs take
+    # the lanes' scales as inputs, so every build reuses them
+    cache = col.__dict__.setdefault('_graphs', {})
+    key = (id(objective), id(gradient))
+    if key not in cache:
+        cache[key] = [_graphed(f) for f in (
+            prepare_lanes, hvp_lanes, point_lanes, objective_lanes,
+            gradient_lanes, constraints_lanes)]
+    prepare_lanes, hvp_lanes, point_lanes, g_obj, g_grad, g_con = cache[key]
+    objective_call = _outside_transforms(objective_lanes, g_obj)
+    gradient_call = _outside_transforms(gradient_lanes, g_grad)
+    constraints_call = _outside_transforms(constraints_lanes, g_con)
+
     def build(sf, dsc_nodes, dsc_inst):
         """The IPMFunctions whose per-lane data are these scales."""
         def objective_s(free):
-            return lanes(sf, free.shape[0]) * vmap(objective)(free)
+            return objective_call(free, lanes(sf, free.shape[0]))
 
         def gradient_s(free):
-            return lanes(sf, free.shape[0])[:, None] * vmap(grad_fn)(free)
+            return gradient_call(free, lanes(sf, free.shape[0]))
 
         def constraints_s(free):
             B = free.shape[0]
-            res, inst = vmap(col.constraints_nodewise)(free)
-            return join_con(res * lanes(dsc_nodes, B),
-                            inst * lanes(dsc_inst, B))
+            return constraints_call(free, lanes(dsc_nodes, B),
+                                    lanes(dsc_inst, B))
+
+        def eval_point(x, y):
+            B = x.shape[0]
+            return point_lanes(x, y, lanes(sf, B), lanes(dsc_nodes, B),
+                               lanes(dsc_inst, B))
 
         def kkt_prepare(x, y):
             """Per-iteration block construction at (x, y), (B, ·) each:
@@ -343,14 +466,19 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
             blocks.  Shared by the direction trials, the corrector and
             the SOC re-solve."""
             B = x.shape[0]
-            return vmap(prepare_one)(x, y, lanes(sf, B),
-                                     lanes(dsc_nodes, B), lanes(dsc_inst, B))
+            return prepare_lanes(x, y, lanes(sf, B), lanes(dsc_nodes, B),
+                                 lanes(dsc_inst, B))
 
         def kkt_prepare_gn(x):
             """Jacobian-only prep for the restoration's inner solver."""
             B = x.shape[0]
             return vmap(prepare_gn_one)(x, lanes(dsc_nodes, B),
                                         lanes(dsc_inst, B))
+
+        def lagrangian_hvp(x, y, dx):
+            B = x.shape[0]
+            return hvp_lanes(x, y, dx, lanes(sf, B), lanes(dsc_nodes, B),
+                             lanes(dsc_inst, B))
 
         def take_lanes(idx):
             pick = lambda t: t if t.shape[0] == 1 else t[idx]
@@ -362,6 +490,7 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
             kkt_factor=kkt_factor, kkt_apply=kkt_apply,
             kkt_apply_soc=kkt_apply_soc, kkt_solve=kkt_solve,
             kkt_solve_feasibility=kkt_solve_feasibility,
-            kkt_prepare_gn=kkt_prepare_gn, take_lanes=take_lanes)
+            kkt_prepare_gn=kkt_prepare_gn, take_lanes=take_lanes,
+            lagrangian_hvp=lagrangian_hvp, eval_point=eval_point)
 
     return build(sf, dsc_nodes, dsc_inst), (sf, dsc_full)

@@ -97,6 +97,8 @@ def solve_ipm(fns: IPMFunctions, x0, xl, xu, cl, cu,
                                      device=device)
 
     def eval_point(x, y):
+        if fns.eval_point is not None:
+            return fns.eval_point(x, y)
         g = fns.gradient(x)
         c, vjp_fn = vjp(fns.constraints, x)
         return g, c, vjp_fn(y)[0]

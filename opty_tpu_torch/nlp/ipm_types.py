@@ -186,6 +186,13 @@ class IPMFunctions(NamedTuple):
     # to kkt_prepare(x, 0).
     kkt_prepare_gn: Any = None
     take_lanes: Any = None
+    # optional (x, y, dx) -> the Lagrangian Hessian applied to dx, the
+    # curvature test's product; falls back to the jvp of the Lagrangian
+    # gradient built from ``gradient`` and ``constraints``.
+    lagrangian_hvp: Any = None
+    # optional (x, y) -> (gradient, constraints, J^T y) at a new iterate;
+    # falls back to ``gradient`` and a vjp of ``constraints``.
+    eval_point: Any = None
 
 
 class IPMResult(NamedTuple):

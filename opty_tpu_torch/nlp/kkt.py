@@ -29,8 +29,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..ops import scan_kernels as sk
 from ..ops.lanes import matvec_nl, to_lanes, transpose_nl
-from ..ops.scan_kernels import scan_factor, scan_solve
 
 __all__ = ['KKTBlocks', 'KKTFactorization', 'CRFactorization', 'METHODS',
            'check_method', 'factor_kkt', 'solve_factored', 'kkt_matvec',
@@ -234,7 +234,7 @@ def factor_kkt(blocks: KKTBlocks, factor_dtype=None) -> KKTFactorization:
     accumulation.  RHS-independent; reused by every refinement solve."""
     blocks = _cast_blocks(blocks, factor_dtype)
     D, E, F, Kbb, sn, sb = _equilibrate(*_assemble_node_blocks(blocks))
-    S_inv, Melim, Ft, Kbb_schur_inv = scan_factor(D, E, F, Kbb)
+    S_inv, Melim, Ft, Kbb_schur_inv = sk.scan_factor(D, E, F, Kbb)
     return KKTFactorization(S_inv, Melim, Ft, E, Kbb_schur_inv, sn, sb)
 
 
@@ -247,8 +247,8 @@ def solve_factored(fac: KKTFactorization, r_nodes, r_border):
     dtype = fac.S_inv.dtype
     r = (r_nodes * fac.scale_nodes).to(dtype).contiguous()
     rb = (r_border * fac.scale_border).to(dtype).contiguous()
-    u, beta = scan_solve(fac.S_inv, fac.Melim, fac.Ft, fac.E,
-                         fac.Kbb_schur_inv, r, rb)
+    u, beta = sk.scan_solve(fac.S_inv, fac.Melim, fac.Ft, fac.E,
+                            fac.Kbb_schur_inv, r, rb)
     return u * fac.scale_nodes, beta * fac.scale_border
 
 

@@ -289,7 +289,9 @@ def regularized_direction(spec: Spec, fns, x, y, prep,
         healthy = finite & dy_ok
         # a trial counts only when the Newton system was actually solved
         solved = rres <= opt.eta_kkt_resid
-        Wdx = jvp(lag_grad, (x,), (dxx,))[1]
+        Wdx = fns.lagrangian_hvp(x, y, dxx) \
+            if fns.lagrangian_hvp is not None \
+            else jvp(lag_grad, (x,), (dxx,))[1]
         curv = (_dot(dxx, Wdx) + _dot(sigma_x * dxx, dxx)
                 + delta_w * _dot(dxx, dxx)
                 + _dot(sigma_s * dss, dss))

@@ -15,7 +15,11 @@ loaded through ctypes (ops/cuda_build.py):
   a thread per output entry.
 
 Both take the public ``(..., d, d)`` layout as it comes (no batch-last
-transpose, no padding of the batch), d = 2..8, float32 or float64.  On
+transpose, no padding of the batch), d = 2..8, float32 or float64.
+``block_inv`` also takes every other d up to 64 through its wide
+variant (csrc/wide.cu: a thread block per matrix, the matrix in shared
+memory, the same pivoting and order; counted in ``wide_inv_launches``),
+which the PCR path's border needs at b = 1 and b > 8 (nlink-9: 41).  On
 an H100 a call of a few tens of matrices is bound by launch latency
 (``empty_launch`` times an empty kernel, that floor); a whole node axis
 of matrices by device memory (see csrc/blocks.cu).  The PCR path calls
@@ -39,12 +43,15 @@ from .lanes import block_inv_nl, from_lanes, to_lanes
 
 __all__ = ['block_inv', 'block_matmul', 'block_inv_plain',
            'block_matmul_plain', 'empty_launch', 'reset_launch_counts',
-           'SUPPORTED_D']
+           'SUPPORTED_D', 'WIDE_MAX_D']
 
 SUPPORTED_D = tuple(range(2, 9))      # block sizes instantiated in blocks.cu
+WIDE_MAX_D = 64                       # block_inv's wide variant: 1..64
+_INV_D = tuple(range(1, WIDE_MAX_D + 1))
 
 inv_launches = 0
 matmul_launches = 0
+wide_inv_launches = 0
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
@@ -55,9 +62,10 @@ _SIGNATURES['empty_launch'] = [_VP]         # the stream
 
 
 def reset_launch_counts():
-    global inv_launches, matmul_launches
+    global inv_launches, matmul_launches, wide_inv_launches
     inv_launches = 0
     matmul_launches = 0
+    wide_inv_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +92,7 @@ def block_matmul_plain(A, B):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, tensors, out):
+def _check(name, tensors, out, built=SUPPORTED_D):
     A = tensors[0]
     if A.ndim < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError('{}: expected (..., d, d) matrices, got shape {}'
@@ -93,9 +101,9 @@ def _check(name, tensors, out):
     if out is not None:
         tensors = tensors + (out,)
     suffix = check_cuda(name, tensors, [A.shape] * len(tensors))
-    if d not in SUPPORTED_D:
-        raise ValueError('{}: block size d={} is not built (built: {})'
-                         .format(name, d, SUPPORTED_D))
+    if d not in built:
+        raise ValueError('{}: block size d={} is not built (built: {}..{})'
+                         .format(name, d, built[0], built[-1]))
     return suffix, d
 
 
@@ -110,15 +118,24 @@ def block_inv(A, out=None):
     when given (same shape, dtype and device as A)."""
     if A.device.type == 'cpu' and (out is None or out.device.type == 'cpu'):
         return _plain_into(block_inv_plain(A), out)
-    suffix, d = _check('block_inv', (A,), out)
+    suffix, d = _check('block_inv', (A,), out, _INV_D)
     X = torch.empty_like(A) if out is None else out
     nbatch = A.numel() // (d * d)
     if nbatch:
-        fn = getattr(load('blocks', _SIGNATURES), 'block_inv_' + suffix)
+        global inv_launches, wide_inv_launches
+        narrow = d in SUPPORTED_D
+        if narrow:
+            fn = getattr(load('blocks', _SIGNATURES), 'block_inv_' + suffix)
+        else:
+            from .pcr_kernels import _WIDE_SIGNATURES
+            fn = getattr(load('wide', _WIDE_SIGNATURES),
+                         'block_inv_wide_' + suffix)
         launch('block_inv', fn, (A.data_ptr(), X.data_ptr(), nbatch, d),
                A.device)
-        global inv_launches
-        inv_launches += 1
+        if narrow:
+            inv_launches += 1
+        else:
+            wide_inv_launches += 1
     return X
 
 

@@ -28,12 +28,26 @@ threads.  Both need sm_90 clusters.  The factor takes any N; the
 downsweep's r must fit a cluster's shared memory (2 d values a node:
 d = 5, float32, N up to 92,976), beyond which it raises ValueError.
 
+Those kernels hold a node's d x d blocks in one thread's registers and
+are built for d in {3, 5} with b <= 8.  Every other shape up to
+d = 64 and b = 64 goes to the wide variants in csrc/wide.cu, a thread
+block per node with the blocks in shared memory: ``pcr_factor_levels``
+as L + 1 launches (one per level, a node's next inverse formed beside
+its level update; a call is counted once in ``wide_factor_launches``),
+``pcr_downsweep`` with the same launch plan as the narrow kernel
+(``wide_downsweep_launches``).
+
 Unlike the Pallas kernels, neither pads the node axis: outputs keep the
 caller's N.  A tensor on the CPU goes to the plain version
 (``pcr_factor_levels_plain``/``pcr_downsweep_plain``, the level loops
-of opty_tpu/ops/tridiag.py); a CUDA tensor goes to the kernel, or the
+of opty_tpu/ops/tridiag.py); a CUDA tensor goes to a kernel, or the
 wrapper raises.  Each wrapper counts its kernel launches in
-``factor_launches``/``downsweep_launches``.
+``factor_launches``/``downsweep_launches`` (and the wide counters).
+
+``kernel_supported(d, b, N, dtype)`` says, from static shapes alone,
+whether the kernels take a system, as the JAX package's
+``fused_supported`` does for its Pallas kernels.  It decides no route:
+on the card a system outside it raises with its shape.
 """
 
 import ctypes
@@ -48,10 +62,13 @@ from .tridiag import _down, _up, num_levels
 
 __all__ = ['pcr_factor_levels', 'pcr_downsweep', 'pcr_factor_levels_plain',
            'pcr_downsweep_plain', 'launch_plan', 'LaunchPlan',
-           'build_kernels', 'reset_launch_counts', 'SUPPORTED_D', 'MAX_B']
+           'build_kernels', 'reset_launch_counts', 'kernel_supported',
+           'SUPPORTED_D', 'MAX_B', 'WIDE_MAX_D', 'WIDE_MAX_B']
 
 SUPPORTED_D = (3, 5)      # block sizes instantiated in csrc/pcr.cu
 MAX_B = 8                 # widest border the kernels take
+WIDE_MAX_D = 64           # the wide variants (csrc/wide.cu): 1 <= d <= 64,
+WIDE_MAX_B = 64           # 0 <= b <= 64
 MAX_SMEM = 227 * 1024     # dynamic shared memory a block may use (H100)
 MAX_FACTOR_THREADS = 256  # the kernels' __launch_bounds__ (csrc/pcr.cu)
 MAX_SWEEP_THREADS = 1024
@@ -61,12 +78,40 @@ MAX_CLUSTER = 16          # the most an H100 schedules
 
 factor_launches = 0
 downsweep_launches = 0
+wide_factor_launches = 0
+wide_downsweep_launches = 0
 
 
 def reset_launch_counts():
-    global factor_launches, downsweep_launches
+    global factor_launches, downsweep_launches, wide_factor_launches, \
+        wide_downsweep_launches
     factor_launches = 0
     downsweep_launches = 0
+    wide_factor_launches = 0
+    wide_downsweep_launches = 0
+
+
+def _narrow(d, b):
+    """Whether csrc/pcr.cu's register kernels are built for (d, b)."""
+    return d in SUPPORTED_D and 0 <= b <= MAX_B
+
+
+def _sweep_fits(d, N, dtype):
+    """Whether the downsweep's r fits the shared memory of a cluster of
+    MAX_CLUSTER blocks (launch_plan raises beyond)."""
+    return 2 * d * -(-N // MAX_CLUSTER) * dtype.itemsize <= MAX_SMEM
+
+
+def kernel_supported(d, b, N, dtype):
+    """True when the cr path's kernels take a (d, b, N) system in
+    ``dtype`` on the card: the factor, the downsweep and the border
+    inverse (ops/block_kernels.py).  A pure function of static shape
+    and dtype; on the card the wrappers raise outside it."""
+    if dtype not in (torch.float32, torch.float64) or N < 1:
+        return False
+    if not (1 <= d <= WIDE_MAX_D and 0 <= b <= WIDE_MAX_B):
+        return False
+    return _sweep_fits(d, N, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -202,17 +247,29 @@ _SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
                for name, args in (
                    ('pcr_factor_levels', [_VP] * 9 + [_CI] * 9 + [_VP]),
                    ('pcr_downsweep', [_VP] * 4 + [_CI] * 8 + [_VP]))}
+_WIDE_SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
+                    for name, args in (
+                        ('pcr_wide_factor', [_VP] * 9 + [_CI] * 5 + [_VP]),
+                        ('pcr_wide_downsweep',
+                         [_VP] * 4 + [_CI] * 8 + [_VP]),
+                        ('block_inv_wide', [_VP, _VP, _CI, _CI, _VP]))}
 
 
 def _check_dims(name, d, b, N):
-    if d not in SUPPORTED_D:
-        raise ValueError('{}: block size d={} is not built (built: {})'
-                         .format(name, d, SUPPORTED_D))
-    if not 0 <= b <= MAX_B:
+    if not 1 <= d <= WIDE_MAX_D:
+        raise ValueError('{}: block size d={} is not built (built: 1..{})'
+                         .format(name, d, WIDE_MAX_D))
+    if not 0 <= b <= WIDE_MAX_B:
         raise ValueError('{}: border width b={} exceeds {}'.format(
-            name, b, MAX_B))
+            name, b, WIDE_MAX_B))
     if N < 1:
         raise ValueError('{}: empty node axis'.format(name))
+
+
+def _wide_scratch_values(d, b):
+    """The wide factor's scratch per node: two level states of
+    3 d^2 + d b values and two inverse buffers of d^2 (csrc/wide.cu)."""
+    return 2 * (3 * d * d + d * b) + 2 * d * d
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +293,6 @@ def pcr_factor_levels(D, E, F):
                         ((nbatch, d, d, N), (nbatch, d, d, N),
                          (nbatch, d, b, N)))
     _check_dims('pcr_factor_levels', d, b, N)
-    plan = launch_plan('factor', nbatch, d, b, N, D.dtype)
     L = num_levels(N)
     new = lambda *shape: torch.empty(shape, dtype=D.dtype, device=D.device)
     A = new(nbatch, L, d, d, N)
@@ -244,6 +300,18 @@ def pcr_factor_levels(D, E, F):
     Dinv = new(nbatch, d, d, N)
     Fp = new(nbatch, d, b, N)
     Z = new(nbatch, d, b, N)
+    global factor_launches, wide_factor_launches
+    if not _narrow(d, b):
+        scratch = new(nbatch * N * _wide_scratch_values(d, b))
+        fn = getattr(load('wide', _WIDE_SIGNATURES),
+                     'pcr_wide_factor_' + suffix)
+        launch('pcr_factor_levels', fn,
+               (D.data_ptr(), E.data_ptr(), F.data_ptr(), A.data_ptr(),
+                B.data_ptr(), Dinv.data_ptr(), Fp.data_ptr(), Z.data_ptr(),
+                scratch.data_ptr(), nbatch, d, b, N, L), D.device)
+        wide_factor_launches += 1
+        return A, B, Dinv, Fp, Z
+    plan = launch_plan('factor', nbatch, d, b, N, D.dtype)
     scratch = new(nbatch, plan.cluster, plan.scratch) if plan.scratch \
         else None
     fn = getattr(load('pcr', _SIGNATURES), 'pcr_factor_levels_' + suffix)
@@ -253,7 +321,6 @@ def pcr_factor_levels(D, E, F):
             None if scratch is None else scratch.data_ptr(), nbatch, d, b,
             N, L, plan.cluster, plan.nodes_per_block, plan.threads,
             plan.smem_bytes), D.device)
-    global factor_launches
     factor_launches += 1
     return A, B, Dinv, Fp, Z
 
@@ -272,11 +339,19 @@ def pcr_downsweep(A, B, r):
     _check_dims('pcr_downsweep', d, 0, N)
     plan = launch_plan('downsweep', nbatch, d, 0, N, r.dtype)
     out = torch.empty_like(r)
-    fn = getattr(load('pcr', _SIGNATURES), 'pcr_downsweep_' + suffix)
+    narrow = _narrow(d, 0)
+    if narrow:
+        fn = getattr(load('pcr', _SIGNATURES), 'pcr_downsweep_' + suffix)
+    else:
+        fn = getattr(load('wide', _WIDE_SIGNATURES),
+                     'pcr_wide_downsweep_' + suffix)
     launch('pcr_downsweep', fn,
            (A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(), nbatch,
             d, N, L, plan.cluster, plan.nodes_per_block, plan.threads,
             plan.smem_bytes), r.device)
-    global downsweep_launches
-    downsweep_launches += 1
+    global downsweep_launches, wide_downsweep_launches
+    if narrow:
+        downsweep_launches += 1
+    else:
+        wide_downsweep_launches += 1
     return out

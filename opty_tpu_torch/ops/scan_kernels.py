@@ -24,6 +24,11 @@ A tensor on the CPU goes to the plain version (``scan_factor_plain``/
 recursions, the CPU path and its parity target); a CUDA tensor goes to
 the kernel, or the wrapper raises.  Each wrapper counts its kernel
 launches in ``factor_launches``/``solve_launches``.
+
+``kernel_supported(d, b, N, dtype)`` says, from static shapes alone,
+whether the kernels take a system.  It decides no route: on the card
+a system outside it (d > 8 or b > 8, such as nlink-9's d = 50, b = 41)
+raises with its shape.
 """
 
 import ctypes
@@ -36,7 +41,8 @@ from .smallblock import block_inv
 
 __all__ = ['scan_factor', 'scan_solve', 'scan_factor_plain',
            'scan_solve_plain', 'check_factor', 'check_solve',
-           'reset_launch_counts', 'SUPPORTED_D', 'MAX_B']
+           'reset_launch_counts', 'kernel_supported', 'SUPPORTED_D',
+           'MAX_B']
 
 SUPPORTED_D = tuple(range(2, 9))   # block sizes instantiated in scan.cu
 MAX_B = 8                          # widest border the kernels take
@@ -55,6 +61,13 @@ def reset_launch_counts():
     global factor_launches, solve_launches
     factor_launches = 0
     solve_launches = 0
+
+
+def kernel_supported(d, b, N, dtype):
+    """True when scan_factor and scan_solve take a (d, b, N) system in
+    ``dtype`` on the card: a pure function of static shape and dtype."""
+    return (dtype in (torch.float32, torch.float64) and d in SUPPORTED_D
+            and 0 <= b <= MAX_B and N >= 1)
 
 
 # ---------------------------------------------------------------------------

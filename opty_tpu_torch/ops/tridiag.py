@@ -8,7 +8,10 @@ each level is a batch of small block products and inverses over all
 nodes and instances.  The level loop and the right-hand-side downsweep
 run in the CUDA kernels of ops/pcr_kernels.py on the card (their plain
 versions on the CPU); the border Schur complement is formed here and
-inverted by the ``block_inv`` kernel (ops/block_kernels.py).
+inverted by the ``block_inv`` kernel (ops/block_kernels.py).  On the
+card a system the kernels do not take (``pcr_kernels.kernel_supported``:
+d or b above 64, or an r beyond a cluster's shared memory) raises with
+its shape; the plain versions serve CPU tensors only.
 
 After elimination each node satisfies ``D_k u_k + F'_k beta = r'_k``;
 substituting into the border rows gives a small dense Schur complement
@@ -69,11 +72,11 @@ def pcr_factor(D, E, F, Kbb):
     The levels (see opty_tpu's pcr_factor for the recurrence) run in
     ``pcr_factor_levels``; the border Schur complement is formed here.
     """
-    from .pcr_kernels import pcr_factor_levels
+    from . import pcr_kernels as pk
     lead = D.shape[:-3]
     d, N = D.shape[-3], D.shape[-1]
     b = F.shape[-2]
-    A, B, Dinv, Fp, Z = pcr_factor_levels(
+    A, B, Dinv, Fp, Z = pk.pcr_factor_levels(
         _flat(D, 3).contiguous(), _flat(E, 3).contiguous(),
         _flat(F, 3).contiguous())
     L = A.shape[1]
@@ -102,14 +105,14 @@ def _small_inv(A):
 def pcr_solve(fac: PCRFactorization, r_nodes, r_border):
     """Solve with a PCR factorization.  r_nodes (..., d, N),
     r_border (..., b)."""
-    from .pcr_kernels import pcr_downsweep
+    from . import pcr_kernels as pk
     dtype = fac.Dinv.dtype
     r = r_nodes.to(dtype)
     rb = r_border.to(dtype)
-    r = pcr_downsweep(_flat(fac.A, 4).contiguous(),
-                      _flat(fac.B, 4).contiguous(),
-                      _flat(r, 2).contiguous()
-                      ).reshape(fac.Dinv.shape[:-3] + r.shape[-2:])
+    r = pk.pcr_downsweep(_flat(fac.A, 4).contiguous(),
+                         _flat(fac.B, 4).contiguous(),
+                         _flat(r, 2).contiguous()
+                         ).reshape(fac.Dinv.shape[:-3] + r.shape[-2:])
     return _pcr_backsolve(fac, r, rb)
 
 

@@ -56,11 +56,6 @@ class Problem:
                              ' The equations of motion must be ordinary '
                              'differential equations (ODEs) or '
                              'differential algebraic equations (DAEs).')
-        if eom_bounds is not None:
-            raise NotImplementedError(
-                'eom_bounds are not ported to opty_tpu_torch yet (ROADMAP '
-                'queue 1 item 10: transcription breadth).')
-
         self.device = resolve_device(device)
         self._dtype = dtype or default_dtype()
         self.collocator = ConstraintCollocator(
@@ -70,6 +65,13 @@ class Problem:
             dtype=self._dtype, device=self.device)
 
         self._bounds = bounds
+        if eom_bounds is not None:
+            bad = [k for k in eom_bounds
+                   if k not in range(self.collocator.num_eom)]
+            if bad:
+                raise ValueError('Keys {} in eom_bounds do not correspond '
+                                 'to equations of motion.'.format(bad))
+        self._eom_bounds = eom_bounds
         self._wrap_objective(obj, obj_grad)
 
         self.num_free = self.collocator.num_free
@@ -123,6 +125,12 @@ class Problem:
         (lower, upper) tuples."""
         return self._bounds
 
+    @property
+    def eom_bounds(self):
+        """The equation-of-motion bounds dictionary mapping eom row
+        index to (lower, upper)."""
+        return self._eom_bounds
+
     def _generate_bound_arrays(self):
         """Box bounds in free-vector layout: scalars or per-node (N,)
         arrays for trajectories; default (-INF, INF)."""
@@ -145,19 +153,33 @@ class Problem:
         self.upper_bound = ub
 
     def _generate_constraint_bound_arrays(self):
-        """cl/cu rows: equality (0, 0)."""
-        self._low_con_bounds = np.zeros(self.num_constraints)
-        self._upp_con_bounds = np.zeros(self.num_constraints)
+        """cl/cu rows: equality (0, 0) by default; the rows of an
+        ``eom_bounds`` entry become path inequalities."""
+        ni = self.collocator.num_collocation_nodes - 1
+        cl = np.zeros(self.num_constraints)
+        cu = np.zeros(self.num_constraints)
+        if self._eom_bounds is not None:
+            for idx, (low, upp) in self._eom_bounds.items():
+                cl[idx * ni:(idx + 1) * ni] = low
+                cu[idx * ni:(idx + 1) * ni] = upp
+        self._low_con_bounds = cl
+        self._upp_con_bounds = cu
 
     def _extraction_indices_static(self):
         d = {}
         col = self.collocator
         N = col.num_collocation_nodes
         n = col.num_states
+        q = col.num_unknown_input_trajectories
+        r = col.num_unknown_parameters
         for i, var in enumerate(col.state_symbols):
             d[var] = list(range(i * N, (i + 1) * N))
         for i, var in enumerate(col.unknown_input_trajectories):
             d[var] = list(range(n * N + i * N, n * N + (i + 1) * N))
+        for i, var in enumerate(col.unknown_parameters):
+            d[var] = [(n + q) * N + i]
+        if col.variable_duration:
+            d[col.time_interval_symbol] = [(n + q) * N + r]
         return d
 
     # ------------------------------------------------------------------
@@ -429,7 +451,7 @@ class Problem:
     # ------------------------------------------------------------------
     def parse_free(self, free):
         """Parses the free vector into (states (n, N), specifieds,
-        constants)."""
+        constants[, h])."""
         col = self.collocator
         return parse_free(free, col.num_states,
                           col.num_unknown_input_trajectories,
@@ -453,6 +475,10 @@ class Problem:
         """Sparse-Jacobian values at ``free`` (COO order of
         ``con_jac_rows``/``con_jac_cols``)."""
         return self.con_jac(free)
+
+    def jacobianstructure(self):
+        """COO (rows, cols) of the constraint Jacobian."""
+        return self.con_jac_rows, self.con_jac_cols
 
 
 def _torch_dtype(dtype):

@@ -11,16 +11,20 @@ import numpy as np
 import torch
 from torch.func import grad, jvp, vmap
 
+from ..config import resolve_device
+
 __all__ = ['make_hvp_seeds', 'make_structured_scalar_hessian',
            'structured_scalar_hessian', 'check_structured_hessian']
 
 
-def make_hvp_seeds(N, n, q, bw, dtype, device='cpu'):
-    """(3*(n+q)+bw, nfree) seed matrix in free-vector layout.
+def make_hvp_seeds(N, n, q, bw, dtype, device=None):
+    """(3*(n+q)+bw, nfree) seed matrix in free-vector layout, on
+    ``device`` (None: the card).
 
     State loc < n lives at loc*N + node and unknown input loc in [n, nz)
     at n*N + (loc-n)*N + node, which is loc*N + node as well — one
     formula covers both."""
+    device = resolve_device(device)
     nz = n + q
     nfree = nz * N + bw
     ncol = 3 * nz + bw

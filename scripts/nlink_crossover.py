@@ -1,0 +1,44 @@
+#!/usr/bin/env python3
+"""Card against CPU on the nlink-9 solve of chip_smoke.py's phase 7a,
+one iteration at a time from a shared state: the card solves the chain
+at N = 60 (phase-7 options, ``kkt_method='cr'``, a float64
+factorization) to each of a few iteration counts k in one chunk from
+the last; there its state is handed to the CPU
+(``interop.state_from_numpy``), both take one iteration from it, and
+the two next iterates are compared.  Needs
+a CUDA card:
+
+    python3 scripts/nlink_crossover.py [k ...]
+
+Prints one JSON object: for each k, the largest difference of the two
+next x, y, zL and zU relative to the largest entry, the card's mu, and
+whether both took the same branch (mono).  A step
+that agrees to round-off at every k means the card and the CPU compute
+the same iteration, and any difference between their full solves is
+round-off amplified along the path.
+"""
+
+import json
+import os
+import sys
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('needs a CUDA card')
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    # iterations of the shared state (the first call takes one)
+    ks = sorted(int(a) for a in sys.argv[1:]) or [1, 2, 5, 10, 20, 50,
+                                                  100, 200, 300]
+    prob, guess = chip_smoke.nlink_problem('cuda')
+    print(json.dumps(dict(device=torch.cuda.get_device_name(0),
+                          crossovers=chip_smoke.nlink_crossovers(
+                              prob, guess, ks))))
+
+
+if __name__ == '__main__':
+    main()

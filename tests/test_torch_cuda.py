@@ -1,5 +1,5 @@
 """The CUDA kernels of opty_tpu_torch (csrc/pcr.cu, csrc/blocks.cu,
-csrc/scan.cu) against their plain versions, on the card.  Marked ``cuda``; without a
+csrc/scan.cu, csrc/wide.cu) against their plain versions, on the card.  Marked ``cuda``; without a
 card every test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -179,10 +179,10 @@ def test_refused_launch_raises(card):
 
 
 def test_wrapper_refuses_what_the_build_lacks(card):
-    D, E, F, _ = _system(1, 4, 2, 16, torch.float32, card)
+    D, E, F, _ = _system(1, 65, 2, 16, torch.float32, card)
     with pytest.raises(ValueError, match='not built'):
         pk.pcr_factor_levels(D, E, F)
-    D, E, F, _ = _system(1, 5, 9, 16, torch.float32, card)
+    D, E, F, _ = _system(1, 5, 65, 16, torch.float32, card)
     with pytest.raises(ValueError, match='border'):
         pk.pcr_factor_levels(D, E, F)
     D, E, F, _ = _system(1, 5, 2, 16, torch.float16, card)
@@ -191,6 +191,103 @@ def test_wrapper_refuses_what_the_build_lacks(card):
     D, E, F, _ = _system(1, 5, 2, 16, torch.float32, card)
     with pytest.raises(ValueError, match='contiguous'):
         pk.pcr_factor_levels(D.transpose(1, 2), E, F)
+
+
+# ---------------------------------------------------------------------------
+# the wide variants (csrc/wide.cu): d and b outside the register kernels
+# ---------------------------------------------------------------------------
+
+# (d, b, N, B): nlink-9's class, the gallery's small d, b = 1, the
+# largest block and border, a border wider than the block, N = 1
+WIDE_SHAPES = [(50, 41, 60, 8), (4, 2, 37, 3), (2, 1, 16, 2), (7, 9, 5, 1),
+               (64, 64, 20, 2), (3, 12, 9, 2), (6, 0, 1, 1)]
+# the factor and the inverse keep their plain versions' operation order
+# (bitwise on finite inputs); the downsweep differs by torch's reduction
+# order in matvec_nl, amplified through the levels in float32
+WIDE_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+
+
+def _wide_system(B, d, b, N, dtype, device, seed=0):
+    """A diagonally dominant system, so that the levels stay well
+    conditioned at every d."""
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((B, d, d, N)) + 2.0 * d * np.eye(d)[:, :, None]
+    E = rng.standard_normal((B, d, d, N)) / d
+    E[..., 0] = 0.0
+    F = 0.1 * rng.standard_normal((B, d, b, N))
+    r = rng.standard_normal((B, d, N))
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return to(D), to(E), to(F), to(r)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d, b, N, B', WIDE_SHAPES)
+def test_wide_kernels_match_plain(card, d, b, N, B, dtype):
+    D, E, F, r = _wide_system(B, d, b, N, dtype, card)
+    pk.reset_launch_counts()
+    got = pk.pcr_factor_levels(D, E, F)
+    assert (pk.factor_launches, pk.wide_factor_launches) == (0, 1)
+    want = pk.pcr_factor_levels_plain(D, E, F)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w)
+    A, Bm = got[0], got[1]
+    out = pk.pcr_downsweep(A, Bm, r)
+    # the downsweep takes no border: d = 3 and 5 keep the narrow kernel
+    narrow = d in pk.SUPPORTED_D
+    assert (pk.downsweep_launches, pk.wide_downsweep_launches) == \
+        ((1, 0) if narrow else (0, 1))
+    assert _rel(out, pk.pcr_downsweep_plain(A, Bm, r)) <= WIDE_TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d', [1, 9, 41, 64])
+def test_wide_block_inv_matches_plain(card, d, dtype):
+    for B in (1, 8, 32):
+        A = _matrices(B, d, dtype, card, seed=B)
+        bk.reset_launch_counts()
+        X = bk.block_inv(A)
+        assert (bk.inv_launches, bk.wide_inv_launches) == (0, 1)
+        assert torch.equal(X, bk.block_inv_plain(A))
+
+
+def test_graph_capture_runs_without_garbage_collection(card):
+    """The derivative passes' graphs are captured with the cyclic
+    collector off (a dead graph destroyed inside a capture invalidates
+    it) and turned back on after; the warm-up call runs with it on."""
+    import gc
+    from opty_tpu_torch.nlp.collocation import _graphed
+    seen = []
+
+    def fn(a):
+        seen.append(gc.isenabled())
+        return a + 1.0
+
+    x = torch.arange(8.0, device=card)
+    graphed = _graphed(fn)
+    assert torch.equal(graphed(x), x + 1.0)
+    assert torch.equal(graphed(2.0 * x), 2.0 * x + 1.0)
+    assert seen == [True, False] and gc.isenabled()
+
+
+def test_card_raises_beyond_the_kernels(card):
+    """A system no kernel takes raises with its shape on the card, in
+    the cr path (a border above 64) and in the scan path (d above 8):
+    nothing falls back to the plain versions there."""
+    D, E, F, r = _wide_system(1, 4, 65, 8, torch.float64, card)
+    Kbb = torch.eye(65, dtype=torch.float64, device=card)[None] * 10.0
+    pk.reset_launch_counts()
+    with pytest.raises(ValueError, match='b=65'):
+        tridiag.pcr_factor(D, E, F, Kbb)
+    assert pk.wide_factor_launches == pk.factor_launches == 0
+    Ds = torch.eye(9, dtype=torch.float64, device=card).expand(
+        1, 8, 9, 9).contiguous()
+    with pytest.raises(ValueError, match='d=9'):
+        sk.scan_factor(Ds, torch.zeros_like(Ds),
+                       torch.zeros(1, 8, 9, 0, dtype=torch.float64,
+                                   device=card),
+                       torch.zeros(1, 0, 0, dtype=torch.float64,
+                                   device=card))
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +360,7 @@ def test_block_inv_singular_batch(card):
 def test_block_wrappers_refuse_bad_input(card):
     A = _matrices(4, 5, torch.float32, card)
     with pytest.raises(ValueError, match='not built'):
-        bk.block_inv(_matrices(4, 9, torch.float32, card))
+        bk.block_inv(_matrices(4, 65, torch.float32, card))
     with pytest.raises(ValueError, match='not built'):
         bk.block_matmul(_matrices(4, 1, torch.float64, card),
                         _matrices(4, 1, torch.float64, card))

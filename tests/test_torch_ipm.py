@@ -74,7 +74,7 @@ def test_one_iteration_from_identical_state(jax_problem, k):
                              **OPTIONS)
     _, _, t_resume = tprob._build_solver()
     start = interop.state_from_numpy(
-        {f: np.asarray(v) for f, v in state._asdict().items()})
+        {f: np.asarray(v) for f, v in state._asdict().items()}, 'cpu')
     _, got = t_resume(torch.as_tensor(free)[None], start)
     assert int(got.it[0]) == k + 1
     for field in ('x', 's', 'y', 'zL', 'zU', 'wL', 'wU'):

@@ -1,0 +1,305 @@
+"""opty_tpu_torch's n-link chain on a cart (models/nlink.py) against
+opty_tpu's, on the CPU in float64 with the same numpy inputs: the
+9-link chain's transcription at N = 12 (20 states, 10 inputs, a
+variable node interval, 40 instance constraints: the KKT node block
+d = 50 and border b = 41), a cyclic-reduction factor and solve at that
+block through the plain versions of the wide kernels, the route gate
+``kernel_supported`` of the PCR and scan kernels, and the two-link
+reach solve of tests/test_nlink.py."""
+
+import numpy as np
+import pytest
+import sympy as sm
+import torch
+
+import jax.numpy as jnp
+
+from opty_tpu.models.nlink import n_link_cart_problem as jax_problem
+from opty_tpu.models.nlink import n_link_initial_guess as jax_guess
+from opty_tpu.nlp.collocation import \
+    make_collocation_nlp_functions as jax_functions
+from opty_tpu.ops import tridiag as jax_tridiag
+from opty_tpu_torch import interop
+from opty_tpu_torch.models.nlink import n_link_cart_problem as torch_problem
+from opty_tpu_torch.models.nlink import n_link_initial_guess as torch_guess
+from opty_tpu_torch.nlp.collocation import \
+    make_collocation_nlp_functions as torch_functions
+from opty_tpu_torch.ops import pcr_kernels, scan_kernels
+from opty_tpu_torch.ops import tridiag as torch_tridiag
+from opty_tpu_torch.transcribe.collocator import ConstraintCollocator
+from opty_tpu_torch.transcribe.hessian import make_hvp_seeds
+
+N = 12
+# transcription: the same lowered expressions evaluated in another order
+# of torch's and XLA's fused operations, relative to the largest entry
+RTOL = 1e-12
+
+
+@pytest.fixture(scope='module')
+def pair9():
+    """Both packages' 9-link reach problem at N = 12, built once (the
+    SymPy derivation takes ~12 s a package)."""
+    jp, q_start = jax_problem(num_links=9, num_nodes=N)
+    tp, _ = torch_problem(num_links=9, num_nodes=N, device='cpu')
+    return jp, tp, q_start
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if want.size == 0:
+        return 0.0
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300)
+
+
+def _point(prob, q_start, seed):
+    free = jax_guess(prob, q_start)
+    return free + 0.01 * np.random.default_rng(seed).standard_normal(
+        free.shape)
+
+
+def test_the_wide_block_class(pair9):
+    jp, tp, _ = pair9
+    col = tp.collocator
+    assert (col.num_states, col.num_unknown_input_trajectories,
+            col.num_instance_constraints, col._bw) == (20, 10, 40, 1)
+    assert col._nz + col.num_eom == 50                  # d
+    assert col._bw + col.num_instance_constraints == 41  # b
+    assert (tp.num_free, tp.num_constraints) == (jp.num_free,
+                                                 jp.num_constraints)
+    np.testing.assert_array_equal(tp.lower_bound, jp.lower_bound)
+    np.testing.assert_array_equal(tp.upper_bound, jp.upper_bound)
+    for got, want in zip(tp.jacobianstructure(), jp.jacobianstructure()):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_initial_guess(pair9):
+    """The inverse-dynamics guess solves per-interval least squares on
+    the Jacobian blocks of each package."""
+    jp, tp, q_start = pair9
+    assert _rel(torch_guess(tp, q_start), jax_guess(jp, q_start)) <= 1e-10
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_constraints_jacobian_objective(pair9, seed):
+    jp, tp, q_start = pair9
+    x = _point(jp, q_start, seed)
+    assert _rel(tp.con(x), jp.con(x)) <= RTOL
+    assert _rel(tp.jacobian(x), jp.jacobian(x)) <= RTOL
+    assert abs(tp.objective(x) - jp.objective(x)) <= RTOL * abs(
+        jp.objective(x))
+    assert _rel(tp.gradient(x), jp.gradient(x)) <= RTOL
+
+
+def _blocks_hvp(col, blocks, v):
+    """The action of node blocks (Hd, Ho, Hw, Hww) on a free vector."""
+    Hd, Ho, Hw, Hww = (b.numpy() for b in blocks)
+    n, q, Nn = col.num_states, col.num_unknown_input_trajectories, N
+    nz = n + q
+    vn = np.concatenate([v[:n * Nn].reshape(n, Nn).T,
+                         v[n * Nn:nz * Nn].reshape(q, Nn).T], axis=1)
+    vw = v[nz * Nn:]
+    prev = np.vstack([np.zeros((1, nz)), vn[:-1]])
+    nxt = np.vstack([vn[1:], np.zeros((1, nz))])
+    Ho_next = np.concatenate([Ho[1:], np.zeros((1, nz, nz))])
+    rn = (np.einsum('kij,kj->ki', Hd, vn) + np.einsum('kji,kj->ki', Ho, prev)
+          + np.einsum('kij,kj->ki', Ho_next, nxt)
+          + np.einsum('kij,j->ki', Hw, vw))
+    rw = np.einsum('kij,ki->j', Hw, vn) + Hww @ vw
+    return np.concatenate([rn[:, :n].T.reshape(-1), rn[:, n:].T.reshape(-1),
+                           rw])
+
+
+def test_hessian_blocks_against_the_reference_jacobian(pair9):
+    """The EoM part of the Lagrangian Hessian, applied to a direction,
+    against central differences of y^T J from the JAX package's sparse
+    Jacobian (step 1e-6: agreement to ~1e-7 relative)."""
+    jp, tp, q_start = pair9
+    col = tp.collocator
+    rng = np.random.default_rng(5)
+    x = _point(jp, q_start, 2)
+    M = col.num_eom
+    y_nodes = rng.standard_normal((N - 1, M))
+    y = np.concatenate([y_nodes.T.reshape(-1),
+                        np.zeros(col.num_instance_constraints)])
+    rows, cols = jp.jacobianstructure()
+
+    def jty(point):
+        g = np.zeros(jp.num_free)
+        np.add.at(g, cols, np.asarray(jp.jacobian(point)) * y[rows])
+        return g
+
+    v = rng.standard_normal(jp.num_free)
+    v /= np.linalg.norm(v)
+    eps = 1e-6
+    fd = (jty(x + eps * v) - jty(x - eps * v)) / (2 * eps)
+    blocks = col.hessian_blocks(torch.as_tensor(x), torch.as_tensor(y_nodes))
+    assert _rel(_blocks_hvp(col, blocks, v), fd) <= 1e-6
+
+
+def test_hessian_blocks_match_reference(pair9):
+    """The collocator's Hessian blocks of y^T c against the JAX
+    package's (its scan-mode wide derivatives, the port's full-width
+    sweep), to round-off."""
+    jp, tp, q_start = pair9
+    x = _point(jp, q_start, 3)
+    y = np.random.default_rng(6).standard_normal(
+        (N - 1, tp.collocator.num_eom))
+    got = tp.collocator.hessian_blocks(torch.as_tensor(x),
+                                       torch.as_tensor(y))
+    want = jp.collocator.hessian_blocks(jnp.asarray(x), jnp.asarray(y))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= RTOL
+
+
+def test_kkt_prepare_matches_reference(pair9):
+    """kkt_prepare's blocks of the scaled Lagrangian Hessian and of the
+    Jacobian (the objective's and the instance constraints' curvature,
+    Hw and Hww of the variable h included) against the JAX package's,
+    at one lane, with the scales of the same starting point."""
+    jp, tp, q_start = pair9
+    rng = np.random.default_rng(7)
+    x0 = _point(jp, q_start, 4)
+    x = _point(jp, q_start, 5)
+    y = rng.standard_normal(jp.num_constraints)
+    fns, _ = torch_functions(tp.collocator, tp._obj_fn, tp._obj_grad_fn,
+                             scale_from=torch.as_tensor(x0)[None],
+                             kkt_method='cr')
+    prep = fns.kkt_prepare(torch.as_tensor(x)[None],
+                           torch.as_tensor(y)[None])
+    jfns, _ = jax_functions(jp.collocator, jp._obj_fn, jp._obj_grad_fn,
+                            scale_from=jnp.asarray(x0), kkt_method='cr')
+    want = jfns.kkt_prepare(jnp.asarray(x), jnp.asarray(y))
+    assert set(prep) == set(want)
+    for k, w in want.items():
+        assert _rel(prep[k][0], w) <= RTOL, k
+
+
+def _wide_system(d, b, n, seed=0):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((d, d, n)) + 2.0 * d * np.eye(d)[:, :, None]
+    E = rng.standard_normal((d, d, n)) / d
+    E[..., 0] = 0.0
+    F = 0.1 * rng.standard_normal((d, b, n))
+    Kbb = rng.standard_normal((b, b)) + 5.0 * np.eye(b)
+    return D, E, F, Kbb, rng.standard_normal((d, n)), rng.standard_normal(b)
+
+
+def test_cr_factor_and_solve_at_the_nlink_block():
+    """A cyclic-reduction factor and solve at d = 50, b = 41 through the
+    plain versions (the CPU route of the wide kernels) against the JAX
+    package's jnp level loop, to 1e-10 relative."""
+    D, E, F, Kbb, r, rb = _wide_system(50, 41, N)
+    want = jax_tridiag.pcr_factor(*map(jnp.asarray, (D, E, F, Kbb)))
+    got = torch_tridiag.pcr_factor(*map(torch.as_tensor, (D, E, F, Kbb)))
+    for name in want._fields:
+        assert _rel(getattr(got, name), getattr(want, name)) <= 1e-10, name
+    u_j, beta_j = jax_tridiag.pcr_solve(want, jnp.asarray(r),
+                                        jnp.asarray(rb))
+    u_t, beta_t = torch_tridiag.pcr_solve(got, torch.as_tensor(r),
+                                          torch.as_tensor(rb))
+    assert _rel(u_t, u_j) <= 1e-10
+    assert _rel(beta_t, beta_j) <= 1e-10
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize('args, want', [
+    ((5, 4, 501, F32), True), ((5, 4, 501, F64), True),
+    ((50, 41, 60, F32), True), ((50, 41, 60, F64), True),
+    ((1, 1, 2, F32), True), ((64, 64, 1, F64), True), ((2, 0, 7, F32), True),
+    ((65, 4, 60, F32), False), ((5, 65, 60, F32), False),
+    ((0, 4, 60, F32), False), ((5, 4, 0, F32), False),
+    ((5, 4, 60, torch.float16), False),
+    # r of the downsweep in 16 blocks' shared memory: 2 d ceil(N / 16)
+    # values of 8 bytes within 227 KB
+    ((50, 41, 4640, F64), True), ((50, 41, 4641, F64), False)])
+def test_pcr_route_gate(args, want):
+    assert pcr_kernels.kernel_supported(*args) is want
+
+
+@pytest.mark.parametrize('args, want', [
+    ((5, 4, 501, F64), True), ((2, 0, 1, F32), True), ((8, 8, 9, F64), True),
+    ((50, 41, 60, F64), False), ((9, 0, 60, F64), False),
+    ((5, 9, 60, F64), False), ((5, 4, 0, F64), False),
+    ((5, 4, 60, torch.float16), False)])
+def test_scan_route_gate(args, want):
+    assert scan_kernels.kernel_supported(*args) is want
+
+
+def test_cpu_calls_are_no_plain_route():
+    """A CPU tensor goes to the plain versions as the wrappers' own CPU
+    path, whatever the shape, and no kernel launch is counted; the
+    same shapes beyond the gate (b = 65 here) raise on the card."""
+    D, E, F, Kbb, r, rb = _wide_system(50, 65, 4)
+    pcr_kernels.reset_launch_counts()
+    fac = torch_tridiag.pcr_factor(*map(torch.as_tensor, (D, E, F, Kbb)))
+    u, beta = torch_tridiag.pcr_solve(fac, torch.as_tensor(r),
+                                      torch.as_tensor(rb))
+    assert torch.isfinite(u).all() and beta.shape == (65,)
+    assert (pcr_kernels.factor_launches, pcr_kernels.downsweep_launches,
+            pcr_kernels.wide_factor_launches,
+            pcr_kernels.wide_downsweep_launches) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize('dtype', [F32, F64])
+@pytest.mark.parametrize('batch', [1, 8, 32])
+def test_wide_downsweep_plan_at_the_nlink_block(batch, dtype):
+    """The wide downsweep runs nlink-9's d = 50, N = 60 on the narrow
+    kernel's launch plan: every (node, row) pair owned, within 1,024
+    threads a block."""
+    plan = pcr_kernels.launch_plan('downsweep', batch, 50, 0, 60, dtype)
+    assert plan.cluster * plan.nodes_per_block >= 60
+    assert (plan.cluster - 1) * plan.nodes_per_block < 60
+    assert 50 * plan.nodes_per_block <= plan.threads + 31
+    assert plan.threads <= pcr_kernels.MAX_SWEEP_THREADS
+    assert plan.smem_bytes == 2 * 50 * plan.nodes_per_block * dtype.itemsize
+    assert plan.blocks == batch * plan.cluster
+
+
+def test_entry_points_default_to_the_card():
+    """ConstraintCollocator, interop.state_from_numpy and
+    make_hvp_seeds run on the card unless given ``device='cpu'``: without
+    a card they raise."""
+    t = sm.Symbol('t')
+    x, v = sm.Function('x')(t), sm.Function('v')(t)
+    eom = sm.Matrix([x.diff(t) - v, v.diff(t) + x])
+    state = {'x': np.zeros(3)}
+    if torch.cuda.is_available():
+        col = ConstraintCollocator(eom, (x, v), 4, 0.1, time_symbol=t)
+        assert col._device.type == 'cuda'
+        assert make_hvp_seeds(4, 2, 0, 0, F64).device.type == 'cuda'
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConstraintCollocator(eom, (x, v), 4, 0.1, time_symbol=t)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.state_from_numpy(state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_hvp_seeds(4, 2, 0, 0, F64)
+    col = ConstraintCollocator(eom, (x, v), 4, 0.1, time_symbol=t,
+                               device='cpu')
+    assert col._device.type == 'cpu'
+
+
+def test_two_link_reach_matches_reference():
+    """tests/test_nlink.py's variable-duration two-link reach, solved
+    by both packages with the default options: the same status and
+    iterations, objectives within 1e-8 relative, the final
+    configuration reached and h within its bounds."""
+    jp, q_start = jax_problem(num_links=2, num_nodes=31)
+    tp, _ = torch_problem(num_links=2, num_nodes=31, device='cpu')
+    guess = torch_guess(tp, q_start)
+    assert _rel(guess, jax_guess(jp, q_start)) <= 1e-10
+    _, want = jp.solve(guess)
+    sol, got = tp.solve(guess)
+    assert got['status'] == want['status'] == 0
+    assert got['iterations'] == want['iterations']
+    assert abs(got['obj_val'] - want['obj_val']) <= 1e-8 * abs(
+        want['obj_val'])
+    assert got['inf_pr'] < 1e-6
+    for i in range(3):
+        np.testing.assert_allclose(sol[i * 31 + 30], 0.0, atol=1e-5)
+    assert 0.0 < sol[-1] <= 0.2 + 1e-12

@@ -128,8 +128,10 @@ def test_kkt_apply_matches_reference():
     par_map = {I: 1.0, m: 1.0, g: 9.81, d: 1.0}
     inst = (theta(0.0), theta(10.0) - np.pi, omega(0.0), omega(10.0))
     h = 10.0 / (N - 1)
-    cols = [cls(eom, states, N, h, par_map, instance_constraints=inst,
-                time_symbol=t) for cls in (JaxCol, TorchCol)]
+    cols = [JaxCol(eom, states, N, h, par_map, instance_constraints=inst,
+                   time_symbol=t),
+            TorchCol(eom, states, N, h, par_map, instance_constraints=inst,
+                     time_symbol=t, device='cpu')]
     objs = [make(sm.Integral(T(t) ** 2, t), states, (T(t),), (), N, h,
                  time_symbol=t)
             for make in (jax_objective, torch_objective)]

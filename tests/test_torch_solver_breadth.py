@@ -333,7 +333,7 @@ def pendulum():
     jc = JaxCol(eom, states, N, h, par_map, instance_constraints=inst,
                 time_symbol=t)
     tc = TorchCol(eom, states, N, h, par_map, instance_constraints=inst,
-                  time_symbol=t)
+                  time_symbol=t, device='cpu')
     jo, jg = jax_objective(sm.Integral(T(t) ** 2, t), states, (T(t),), (),
                            N, h, time_symbol=t)
     to, tg = torch_objective(sm.Integral(T(t) ** 2, t), states, (T(t),),

@@ -91,7 +91,7 @@ def _one_iteration(jax_problem, seed, stop):
                              kkt_method='cr')
     _, _, t_resume = tprob._build_solver()
     start = interop.state_from_numpy(
-        {f: np.asarray(v) for f, v in state._asdict().items()})
+        {f: np.asarray(v) for f, v in state._asdict().items()}, 'cpu')
     _, got = t_resume(torch.as_tensor(free)[None], start)
     return state, nxt, got
 

@@ -42,7 +42,7 @@ def pair():
     jc = JaxCol(eom, states, N, h, par_map, instance_constraints=inst,
                 time_symbol=t)
     tc = TorchCol(eom, states, N, h, par_map, instance_constraints=inst,
-                  time_symbol=t)
+                  time_symbol=t, device='cpu')
     jo, _ = jax_objective(sm.Integral(T(t) ** 2, t), states, (T(t),), (),
                           N, h, time_symbol=t)
     to, _ = torch_objective(sm.Integral(T(t) ** 2, t), states, (T(t),), (),
@@ -159,16 +159,32 @@ def test_vmapped_lanes_equal_single(pair):
 
 
 def test_unported_features_raise():
+    """The features that raised before they were ported (midpoint, a
+    variable node interval, unknown parameters) now transcribe as the
+    JAX package does; an implicit unknown function still raises in
+    both."""
     t, T, states, eom, par_map, inst = _pendulum_symbols()
-    with pytest.raises(NotImplementedError, match='queue 1 item 10'):
-        TorchCol(eom, states, N, 0.1, par_map, instance_constraints=inst,
-                 time_symbol=t, integration_method='midpoint')
-    with pytest.raises(NotImplementedError, match='queue 1 item 10'):
-        TorchCol(eom, states, N, sm.Symbol('h'), par_map,
-                 instance_constraints=inst, time_symbol=t)
-    with pytest.raises(NotImplementedError, match='queue 1 item 10'):
-        TorchCol(eom, states, N, 0.1, {}, instance_constraints=inst,
-                 time_symbol=t)
+    h = sm.Symbol('h', real=True)
+    inst_h = (states[0].func(0 * h), states[0].func((N - 1) * h) - np.pi)
+    cases = (dict(node_time_interval=0.1, known_parameter_map=par_map,
+                  instance_constraints=inst,
+                  integration_method='midpoint'),
+             dict(node_time_interval=h, known_parameter_map=par_map,
+                  instance_constraints=inst_h),
+             dict(node_time_interval=0.1, known_parameter_map={},
+                  instance_constraints=inst))
+    for kw in cases:
+        jc = JaxCol(eom, states, N, time_symbol=t, **kw)
+        tc = TorchCol(eom, states, N, time_symbol=t, device='cpu', **kw)
+        x = _free(7, jc.num_free)
+        x[-1] = abs(x[-1]) + 0.1
+        assert tc.num_free == jc.num_free
+        assert _rel(tc.constraints(torch.as_tensor(x)),
+                    jc.constraints(jnp.asarray(x))) <= RTOL
+    f = sm.Function('f')(states[0])
+    with pytest.raises(NotImplementedError, match='known trajectory map'):
+        TorchCol(sm.Matrix([eom[0], eom[1] + f]), states, N, 0.1, par_map,
+                 time_symbol=t, device='cpu')
 
 
 def test_problem_callbacks_match_reference():
