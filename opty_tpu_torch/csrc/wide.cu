@@ -18,24 +18,31 @@
 // of node k of an instance at (i * d + j) * N + k.
 //
 // What bounds them on an H100:
-// * The factor, by arithmetic: a level costs a node about 6 d^3 + 2 d^2 b
-//   multiply-adds for its six products and two border products, and
-//   about 2 d^3 more for the pivoted inverse of its new diagonal block
-//   (~2.2 MFLOP a node at d = 50, b = 41; 6.2 GFLOP per factorization of
-//   B = 8 instances at N = 60, against 84 MB of outputs).  The design:
-//   one launch per level (the barrier between levels over all nodes of
-//   an instance), a thread block per (instance, node).  The level state
-//   [D | Lb | Ub | F] of every node and the level's inverses live in a
-//   global scratch, node-major, so a block reads a neighbour's blocks as
-//   contiguous runs; the operands of each product are staged in shared
-//   memory, and each thread sums a 4 x 4 tile of the product in
-//   registers, its rows and columns interleaved over the tile grid so
-//   that a warp reads consecutive shared-memory words.  A block inverts
-//   its node's new diagonal block right after forming it, so level l's
-//   launch also gives level l + 1 its inverses: L + 1 launches per
-//   factorization (the first inverts the initial blocks).  No tensor
-//   cores: TF32 is ruled out (config.py), and wgmma/DMMA tiling is
-//   later work.
+// * The factor, by arithmetic: a level costs a node 6 d^3 + 2 d^2 b
+//   multiply-adds for its six products and two border products and
+//   about d^3 more for the pivoted inverse of its new diagonal block
+//   (~2 MFLOP a node at d = 50, b = 41), against 84 MB of outputs at
+//   B = 8 instances of N = 60.  The design: one launch per level (the
+//   barrier between levels over all nodes of an instance), a thread
+//   block per (instance, node).  The level state [D | Lb | Ub | F] of
+//   every node and the level's inverses live in a global scratch,
+//   node-major, so a block reads a neighbour's blocks as contiguous
+//   runs, staged into shared memory by asynchronous copies.  Every
+//   product is wide.cuh's tile product (FP64 tensor cores in double,
+//   fused multiply-add register tiles in float), every inverse its
+//   panelled LU inverse (block_inv_nl's elimination and back
+//   substitution in panels of 8, with look-ahead in double).  A level
+//   runs the products in four passes that need six shared matrices at
+//   most (227 KB at d = b = 64 in double with the inverse's scratch):
+//   A, then everything that reads A (D' -= A Ub_{g-s}, F' -= A F_{g-s},
+//   Lb'), then B and everything that reads B; the updates subtract in
+//   the plain version's order.  The inverse writes into the first
+//   operand buffer, free by then.  A block inverts its node's new diagonal
+//   block right after forming it, so level l's launch also gives level
+//   l + 1 its inverses: L + 1 launches per factorization (the first
+//   inverts the initial blocks).  At B = 1 a factorization's 60 blocks
+//   use 60 of the 132 SMs; more SMs a node (a cluster splitting the
+//   products' rows) is not built.
 // * The downsweep, by reading the stored levels (2 L d^2 N values an
 //   instance).  The design of pcr.cu's downsweep with d a runtime value:
 //   an instance on a thread block cluster, r in shared memory, a thread
@@ -43,17 +50,15 @@
 //   blocks read through distributed shared memory, one cluster barrier a
 //   level.
 // * block_inv_wide, at the PCR border's 8-32 matrices, by launch latency
-//   and the inverse's d sequential pivot steps.
+//   and the inverse's chain of panels.
 //
-// The inverse is block_inv_nl's (ops/lanes.py): Gaussian elimination
-// with partial pivoting (largest |entry| at or below the diagonal, the
-// first one on ties, NaN counted as largest; here a warp reduction),
-// row swaps, then back substitution, every column of M and R updated as
-// there.  Products sum their inner index in order, as matmul_nl does,
-// and the level updates subtract in the plain version's order.  Built
-// with -fmad=false, the factor and the inverse equal their plain PyTorch
-// versions bitwise on finite inputs; the downsweep differs from its
-// plain version only by the order of torch's reduction in matvec_nl.
+// The factor and the inverse sum in another order than their plain
+// versions (tensor-core accumulation, fused multiply-adds, the inverse's
+// updates blocked in panels), so they agree with them to round-off, not
+// bitwise as the CUDA-core design with in-order sums did: bitwise
+// equality is given up for the tensor cores and the panels.  The
+// downsweep sums each row in order where the plain version's matvec_nl
+// lets torch reduce in its own.
 
 #include <atomic>
 #include <cstddef>
@@ -62,182 +67,42 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "wide.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;          // a block of the factor, the inverse
+using wide::Mat;
+using wide::kThreads;
+
 constexpr int kSweepThreads = 1024;    // a block of the downsweep
-constexpr int kTile = 4;               // a thread's tile of a product
 constexpr int kMaxD = 64;
 constexpr int kMaxB = 64;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxDevices = 64;
 
-template <typename T>
-__device__ __forceinline__ bool is_nan(T v) { return v != v; }
-
-// f(i, j, C(i, j)) for C = X Y, X (rows x inner) with element (i, m) at
-// X[i * xr + m * xc], Y (inner x cols) row-major with row stride ldy;
-// the sum over m in order.  Thread t owns rows it + a * tr and columns
-// jt + b * tc (a, b < kTile) for (it, jt) = (t / tc, t % tc).
-template <typename T, typename F>
-__device__ __forceinline__ void tile_product(const T* X, int xr, int xc,
-                                             const T* Y, int ldy, int rows,
-                                             int cols, int inner, F&& f) {
-  const int tr = (rows + kTile - 1) / kTile;
-  const int tc = (cols + kTile - 1) / kTile;
-  for (int t = threadIdx.x; t < tr * tc; t += blockDim.x) {
-    const int it = t / tc, jt = t - (t / tc) * tc;
-    int ri[kTile], cj[kTile];
-#pragma unroll
-    for (int a = 0; a < kTile; ++a) {
-      ri[a] = min(it + a * tr, rows - 1);
-      cj[a] = min(jt + a * tc, cols - 1);
-    }
-    T acc[kTile][kTile];
-    {
-      T x[kTile], y[kTile];
-#pragma unroll
-      for (int a = 0; a < kTile; ++a) {
-        x[a] = X[ri[a] * xr];
-        y[a] = Y[cj[a]];
-      }
-#pragma unroll
-      for (int a = 0; a < kTile; ++a)
-#pragma unroll
-        for (int b = 0; b < kTile; ++b) acc[a][b] = x[a] * y[b];
-    }
-    for (int m = 1; m < inner; ++m) {
-      T x[kTile], y[kTile];
-#pragma unroll
-      for (int a = 0; a < kTile; ++a) {
-        x[a] = X[ri[a] * xr + m * xc];
-        y[a] = Y[m * ldy + cj[a]];
-      }
-#pragma unroll
-      for (int a = 0; a < kTile; ++a)
-#pragma unroll
-        for (int b = 0; b < kTile; ++b) acc[a][b] = acc[a][b] + x[a] * y[b];
-    }
-#pragma unroll
-    for (int a = 0; a < kTile; ++a)
-#pragma unroll
-      for (int b = 0; b < kTile; ++b) {
-        const int i = it + a * tr, j = jt + b * tc;
-        if (i < rows && j < cols) f(i, j, acc[a][b]);
-      }
+// Shared memory of a factor level, in values: Ab (A, then B), M (D'),
+// O1 and O2 (d x d operands), Fb (F') and O3 (a d x b operand), then an
+// inverse's scratch rows; the inverse's ints follow.  The init kernel
+// and the batched inverse use M and the scratch of the same layout.
+struct Layout {
+  int P, Pb, ab, m, o1, o2, fb, o3, scratch, total;
+  __host__ __device__ Layout(int d, int nb) {
+    P = wide::pitch(d);
+    Pb = wide::pitch(nb);
+    const int mat = wide::values(d, d), matb = wide::values(d, nb);
+    ab = 0;
+    m = mat;
+    o1 = 2 * mat;
+    o2 = 3 * mat;
+    fb = 4 * mat;
+    o3 = fb + matb;
+    scratch = o3 + matb;
+    total = scratch + wide::inverse_scratch(P);
   }
-}
-
-// Copy n values (zeros where !valid) into shared memory.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, int n,
-                                      bool valid) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    dst[e] = valid ? src[e] : T(0);
-}
-
-// The pivoted inverse of the d x d matrix M (row-major, shared memory,
-// overwritten) into X, with R (d x d) and f (d values) as shared scratch:
-// block_inv_nl's algorithm.  Every thread of the block calls it.
-template <typename T>
-__device__ void inverse_shared(T* M, T* R, T* X, T* f, int* pivot, int d) {
-  const int dd = d * d;
-  for (int e = threadIdx.x; e < dd; e += blockDim.x) {
-    const int i = e / d;
-    R[e] = (i == e - i * d) ? T(1) : T(0);
-    X[e] = T(0);
-  }
-  __syncthreads();
-  for (int k = 0; k < d; ++k) {
-    if (threadIdx.x < 32) {
-      // the pivot: the largest |M(i, k)|, i >= k; NaN beats any number,
-      // and the lower row wins a tie
-      T best = T(-1);
-      int p = d;
-      for (int i = k + int(threadIdx.x); i < d; i += 32) {
-        const T v = fabs(M[i * d + k]);
-        const bool take = (is_nan(v) && !is_nan(best)) ||
-                          (!is_nan(best) && v > best);
-        if (take) {
-          best = v;
-          p = i;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const T ob = __shfl_down_sync(0xffffffffu, best, off);
-        const int op = __shfl_down_sync(0xffffffffu, p, off);
-        const bool on = is_nan(ob), mn = is_nan(best);
-        const bool take = (on && !mn) || (on == mn && !on && ob > best) ||
-                          (on == mn && (on || ob == best) && op < p);
-        if (take) {
-          best = ob;
-          p = op;
-        }
-      }
-      if (threadIdx.x == 0) *pivot = p < d ? p : k;
-    }
-    __syncthreads();
-    const int p = *pivot;
-    if (p != k) {
-      for (int j = threadIdx.x; j < d; j += blockDim.x) {
-        T a = M[k * d + j];
-        M[k * d + j] = M[p * d + j];
-        M[p * d + j] = a;
-        a = R[k * d + j];
-        R[k * d + j] = R[p * d + j];
-        R[p * d + j] = a;
-      }
-      __syncthreads();
-    }
-    const T piv = M[k * d + k];
-    for (int i = k + 1 + int(threadIdx.x); i < d; i += blockDim.x)
-      f[i] = M[i * d + k] / piv;
-    __syncthreads();
-    const int below = (d - k - 1) * d;
-    for (int e = threadIdx.x; e < below; e += blockDim.x) {
-      const int i = k + 1 + e / d, j = e - (e / d) * d;
-      M[i * d + j] = M[i * d + j] - f[i] * M[k * d + j];
-      R[i * d + j] = R[i * d + j] - f[i] * R[k * d + j];
-    }
-    __syncthreads();
-  }
-  // back substitution, a thread per column, the sum over i in order
-  for (int k = d - 1; k >= 0; --k) {
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      T acc = M[k * d] * X[j];
-      for (int i = 1; i < d; ++i) acc = acc + M[k * d + i] * X[i * d + j];
-      X[k * d + j] = (R[k * d + j] - acc) / M[k * d + k];
-    }
-    __syncthreads();
-  }
-}
-
-// Shared memory of a factor or inverse block: the multipliers A and B
-// and the matrix M being inverted (d^2 each); R, X and Y (d max(d, b)
-// each); f (kMaxD values) and the pivot index.
-__host__ __device__ inline size_t block_values(int d, int nb) {
-  const int w = d * (nb > d ? nb : d);
-  return size_t(3 * d * d + 3 * w + kMaxD);
-}
-
-template <typename T>
-struct Smem {
-  T *A, *B, *M, *R, *X, *Y, *f;
-  int* pivot;
-  __device__ Smem(unsigned char* raw, int d, int nb) {
-    const int w = d * (nb > d ? nb : d);
-    T* p = reinterpret_cast<T*>(raw);
-    A = p;
-    B = A + d * d;
-    M = B + d * d;
-    R = M + d * d;
-    X = R + w;
-    Y = X + w;
-    f = Y + w;
-    pivot = reinterpret_cast<int*>(f + kMaxD);
+  __host__ __device__ size_t bytes(size_t es) const {
+    return size_t(total) * es + wide::kInverseInts * sizeof(int);
   }
 };
 
@@ -251,7 +116,10 @@ pcr_wide_init(const T* __restrict__ Din, const T* __restrict__ Ein,
               const T* __restrict__ Fin, T* __restrict__ state,
               T* __restrict__ dinv, int N, int d, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> sm(smem_raw, d, nb);
+  const Layout lay(d, nb);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* M = sm + lay.m;
+  int* ints = reinterpret_cast<int*>(sm + lay.total);
   const int g = blockIdx.x;
   const size_t inst = blockIdx.y;
   const int dd = d * d, db = d * nb;
@@ -260,20 +128,20 @@ pcr_wide_init(const T* __restrict__ Din, const T* __restrict__ Ein,
   const T* E0 = Ein + inst * dd * size_t(N);
   const T* F0 = Fin + inst * db * size_t(N);
   T* st = state + (inst * N + g) * P;
+  wide::stage(M, lay.P, D0 + g, d, d, size_t(N), true);
   for (int e = threadIdx.x; e < dd; e += blockDim.x) {
     const int i = e / d, j = e - (e / d) * d;
-    const T v = D0[size_t(e) * N + g];
-    sm.M[e] = v;
-    st[e] = v;
+    st[e] = D0[size_t(e) * N + g];
     st[dd + e] = E0[size_t(e) * N + g];
     st[2 * dd + e] = (g + 1 < N) ? E0[size_t(j * d + i) * N + g + 1] : T(0);
   }
   for (int e = threadIdx.x; e < db; e += blockDim.x)
     st[3 * dd + e] = F0[size_t(e) * N + g];
+  wide::wait_copies();
   __syncthreads();
-  inverse_shared(sm.M, sm.R, sm.X, sm.f, sm.pivot, d);
   T* out = dinv + (inst * N + g) * dd;
-  for (int e = threadIdx.x; e < dd; e += blockDim.x) out[e] = sm.X[e];
+  wide::inverse(M, sm + lay.o1, lay.P, d, sm + lay.scratch, ints,
+                [&](int i, int j, T v) { out[i * d + j] = v; });
 }
 
 // Level l (stride s) of node g: A = Lb Dinv_{g-s}, B = Ub Dinv_{g+s},
@@ -282,7 +150,8 @@ pcr_wide_init(const T* __restrict__ Din, const T* __restrict__ Ein,
 // node-last outputs, the new state to `nxt`, the inverse of D' to
 // `dinv_nxt`.  At the last level (last != 0) Lb' and Ub' are not formed
 // (nothing reads them), and D'^-1, F' and Z = D'^-T F_original go to the
-// node-last outputs Dinv, Fp and Z.
+// node-last outputs Dinv, Fp and Z.  A neighbour outside [0, N) reads
+// as zero.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pcr_wide_level(const T* __restrict__ cur, T* __restrict__ nxt,
@@ -292,110 +161,126 @@ pcr_wide_level(const T* __restrict__ cur, T* __restrict__ nxt,
                T* __restrict__ Fp_out, T* __restrict__ Z_out, int N, int d,
                int nb, int levels, int l, int s, int last) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> sm(smem_raw, d, nb);
+  const Layout lay(d, nb);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* Ab = sm + lay.ab;
+  T* M = sm + lay.m;
+  T* O1 = sm + lay.o1;
+  T* O2 = sm + lay.o2;
+  T* Fb = sm + lay.fb;
+  T* O3 = sm + lay.o3;
+  int* ints = reinterpret_cast<int*>(sm + lay.total);
+  const int P = lay.P, Pb = lay.Pb;
   const int g = blockIdx.x;
   const size_t inst = blockIdx.y;
   const int dd = d * d, db = d * nb;
-  const size_t P = size_t(3 * dd + db);
+  const size_t S = size_t(3 * dd + db);
   const bool has_m = g - s >= 0, has_p = g + s < N;
-  const T* me = cur + (inst * N + g) * P;
-  const T* mm = cur + (inst * N + (has_m ? g - s : g)) * P;
-  const T* mp = cur + (inst * N + (has_p ? g + s : g)) * P;
+  const T* me = cur + (inst * N + g) * S;
+  const T* mm = cur + (inst * N + (has_m ? g - s : g)) * S;
+  const T* mp = cur + (inst * N + (has_p ? g + s : g)) * S;
   const T* dinv_m = dinv_cur + (inst * N + (has_m ? g - s : g)) * dd;
   const T* dinv_p = dinv_cur + (inst * N + (has_p ? g + s : g)) * dd;
   const size_t nodes = size_t(N);
   T* A_l = Aout + (inst * levels + l) * dd * nodes;
   T* B_l = Bout + (inst * levels + l) * dd * nodes;
+  T* out = nxt + (inst * N + g) * S;
+  const Mat<T> ab{Ab, P, false};
 
-  // A = Lb Dinv_{g-s}, B = Ub Dinv_{g+s}
-  stage(sm.X, me + dd, dd, true);
-  stage(sm.Y, dinv_m, dd, has_m);
-  stage(sm.R, me + 2 * dd, dd, true);
-  stage(sm.M, dinv_p, dd, has_p);
+  // A = Lb Dinv_{g-s}; D and F into M and Fb
+  wide::stage(O1, P, me + dd, d, d, 1, true);
+  wide::stage(O2, P, dinv_m, d, d, 1, has_m);
+  wide::stage(M, P, me, d, d, 1, true);
+  wide::stage(Fb, Pb, me + 3 * dd, d, nb, 1, true);
+  wide::wait_copies();
   __syncthreads();
-  tile_product(sm.X, d, 1, sm.Y, d, d, d, d, [&](int i, int j, T v) {
-    sm.A[i * d + j] = v;
-    A_l[size_t(i * d + j) * nodes + g] = v;
-  });
-  tile_product(sm.R, d, 1, sm.M, d, d, d, d, [&](int i, int j, T v) {
-    sm.B[i * d + j] = v;
-    B_l[size_t(i * d + j) * nodes + g] = v;
-  });
+  wide::product(Mat<T>{O1, P, false}, Mat<T>{O2, P, false}, d, d, d, 0,
+                [&](int i, int j, T v) {
+                  Ab[i * P + j] = v;
+                  A_l[size_t(i * d + j) * nodes + g] = v;
+                });
   __syncthreads();
 
-  // D' = (D - A Ub_{g-s}) - B Lb_{g+s}, in M
-  stage(sm.M, me, dd, true);
-  stage(sm.X, mm + 2 * dd, dd, has_m);
-  stage(sm.Y, mp + dd, dd, has_p);
+  // D -= A Ub_{g-s}; F -= A F_{g-s}; Lb' = -A Lb_{g-s}
+  wide::stage(O1, P, mm + 2 * dd, d, d, 1, has_m);
+  if (!last) wide::stage(O2, P, mm + dd, d, d, 1, has_m);
+  wide::stage(O3, Pb, mm + 3 * dd, d, nb, 1, has_m);
+  wide::wait_copies();
   __syncthreads();
-  tile_product(sm.A, d, 1, sm.X, d, d, d, d, [&](int i, int j, T v) {
-    sm.M[i * d + j] = sm.M[i * d + j] - v;
-  });
+  int off = wide::product(ab, Mat<T>{O1, P, false}, d, d, d, 0,
+                          [&](int i, int j, T v) {
+                            M[i * P + j] = M[i * P + j] - v;
+                          });
+  off = wide::product(ab, Mat<T>{O3, Pb, false}, d, nb, d, off,
+                      [&](int i, int c, T v) {
+                        Fb[i * Pb + c] = Fb[i * Pb + c] - v;
+                      });
+  if (!last)
+    wide::product(ab, Mat<T>{O2, P, false}, d, d, d, off,
+                  [&](int i, int j, T v) { out[dd + i * d + j] = -v; });
   __syncthreads();
-  tile_product(sm.B, d, 1, sm.Y, d, d, d, d, [&](int i, int j, T v) {
-    sm.M[i * d + j] = sm.M[i * d + j] - v;
-  });
-  __syncthreads();
-  T* out = nxt + (inst * N + g) * P;
-  if (!last) {
-    for (int e = threadIdx.x; e < dd; e += blockDim.x) out[e] = sm.M[e];
-    // Lb' = -A Lb_{g-s}, Ub' = -B Ub_{g+s}
-    stage(sm.X, mm + dd, dd, has_m);
-    stage(sm.Y, mp + 2 * dd, dd, has_p);
-    __syncthreads();
-    tile_product(sm.A, d, 1, sm.X, d, d, d, d,
-                 [&](int i, int j, T v) { out[dd + i * d + j] = -v; });
-    tile_product(sm.B, d, 1, sm.Y, d, d, d, d,
-                 [&](int i, int j, T v) { out[2 * dd + i * d + j] = -v; });
-    __syncthreads();
-  }
 
-  // F' = (F - A F_{g-s}) - B F_{g+s}, in R
-  if (nb) {
-    stage(sm.R, me + 3 * dd, db, true);
-    stage(sm.X, mm + 3 * dd, db, has_m);
-    stage(sm.Y, mp + 3 * dd, db, has_p);
-    __syncthreads();
-    tile_product(sm.A, d, 1, sm.X, nb, d, nb, d, [&](int i, int c, T v) {
-      sm.R[i * nb + c] = sm.R[i * nb + c] - v;
-    });
-    __syncthreads();
-    tile_product(sm.B, d, 1, sm.Y, nb, d, nb, d, [&](int i, int c, T v) {
-      sm.R[i * nb + c] = sm.R[i * nb + c] - v;
-    });
-    __syncthreads();
-    if (last) {
-      T* fp = Fp_out + inst * db * nodes;
-      for (int e = threadIdx.x; e < db; e += blockDim.x)
-        fp[size_t(e) * nodes + g] = sm.R[e];
-    } else {
-      for (int e = threadIdx.x; e < db; e += blockDim.x)
-        out[3 * dd + e] = sm.R[e];
-    }
-    __syncthreads();
-  }
+  // B = Ub Dinv_{g+s}
+  wide::stage(O1, P, me + 2 * dd, d, d, 1, true);
+  wide::stage(O2, P, dinv_p, d, d, 1, has_p);
+  wide::wait_copies();
+  __syncthreads();
+  wide::product(Mat<T>{O1, P, false}, Mat<T>{O2, P, false}, d, d, d, 0,
+                [&](int i, int j, T v) {
+                  Ab[i * P + j] = v;
+                  B_l[size_t(i * d + j) * nodes + g] = v;
+                });
+  __syncthreads();
 
-  // the inverse of D' (M), for the next level or the output
-  inverse_shared(sm.M, sm.R, sm.X, sm.f, sm.pivot, d);
+  // D' = D - B Lb_{g+s}; F' = F - B F_{g+s}; Ub' = -B Ub_{g+s}; D' and
+  // F' also to the next state (F' to Fp at the last level)
+  wide::stage(O1, P, mp + dd, d, d, 1, has_p);
+  if (!last) wide::stage(O2, P, mp + 2 * dd, d, d, 1, has_p);
+  wide::stage(O3, Pb, mp + 3 * dd, d, nb, 1, has_p);
+  wide::wait_copies();
+  __syncthreads();
+  T* fp = Fp_out + inst * db * nodes;
+  off = wide::product(ab, Mat<T>{O1, P, false}, d, d, d, 0,
+                      [&](int i, int j, T v) {
+                        const T dn = M[i * P + j] - v;
+                        M[i * P + j] = dn;
+                        if (!last) out[i * d + j] = dn;
+                      });
+  off = wide::product(ab, Mat<T>{O3, Pb, false}, d, nb, d, off,
+                      [&](int i, int c, T v) {
+                        const T fn = Fb[i * Pb + c] - v;
+                        if (last)
+                          fp[size_t(i * nb + c) * nodes + g] = fn;
+                        else
+                          out[3 * dd + i * nb + c] = fn;
+                      });
+  if (!last)
+    wide::product(ab, Mat<T>{O2, P, false}, d, d, d, off,
+                  [&](int i, int j, T v) { out[2 * dd + i * d + j] = -v; });
+  __syncthreads();
+
+  // the inverse of D', for the next level or the output
   if (!last) {
     T* di = dinv_nxt + (inst * N + g) * dd;
-    for (int e = threadIdx.x; e < dd; e += blockDim.x) di[e] = sm.X[e];
+    wide::inverse(M, O1, P, d, sm + lay.scratch, ints,
+                  [&](int i, int j, T v) { di[i * d + j] = v; });
     return;
   }
+  // at the last level F_original comes in while D' is inverted
+  wide::stage(O3, Pb, Fin + inst * db * nodes + g, d, nb, nodes, true);
   T* di = Dinv_out + inst * dd * nodes;
-  for (int e = threadIdx.x; e < dd; e += blockDim.x)
-    di[size_t(e) * nodes + g] = sm.X[e];
-  if (nb) {
-    // Z = Dinv^T F_original
-    const T* F0 = Fin + inst * db * nodes;
-    for (int e = threadIdx.x; e < db; e += blockDim.x)
-      sm.Y[e] = F0[size_t(e) * nodes + g];
-    __syncthreads();
-    T* z = Z_out + inst * db * nodes;
-    tile_product(sm.X, 1, d, sm.Y, nb, d, nb, d, [&](int i, int c, T v) {
-      z[size_t(i * nb + c) * nodes + g] = v;
-    });
-  }
+  wide::inverse(M, O1, P, d, sm + lay.scratch, ints, [&](int i, int j, T v) {
+    di[size_t(i * d + j) * nodes + g] = v;
+    Ab[i * P + j] = v;
+  });
+  wide::wait_copies();
+  __syncthreads();
+  // Z = Dinv^T F_original
+  T* z = Z_out + inst * db * nodes;
+  wide::product(Mat<T>{Ab, P, true}, Mat<T>{O3, Pb, false}, d, nb, d, 0,
+                [&](int i, int c, T v) {
+                  z[size_t(i * nb + c) * nodes + g] = v;
+                });
 }
 
 // The inverse of every d x d matrix of a batch (row-major), a block per
@@ -404,13 +289,17 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 block_inv_wide_kernel(const T* __restrict__ A, T* __restrict__ Xout, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> sm(smem_raw, d, 0);
+  const Layout lay(d, 0);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* M = sm + lay.m;
   const int dd = d * d;
   const size_t off = size_t(blockIdx.x) * dd;
-  stage(sm.M, A + off, dd, true);
+  wide::stage(M, lay.P, A + off, d, d, 1, true);
+  wide::wait_copies();
   __syncthreads();
-  inverse_shared(sm.M, sm.R, sm.X, sm.f, sm.pivot, d);
-  for (int e = threadIdx.x; e < dd; e += blockDim.x) Xout[off + e] = sm.X[e];
+  wide::inverse(M, sm + lay.o1, lay.P, d, sm + lay.scratch,
+                reinterpret_cast<int*>(sm + lay.total),
+                [&](int i, int j, T v) { Xout[off + i * d + j] = v; });
 }
 
 // The downsweep of pcr.cu with a runtime d.  Node g of the instance lives
@@ -541,7 +430,7 @@ int wide_factor(const void* Dm, const void* E, const void* F, void* A,
     return int(cudaErrorInvalidValue);
   static Allowed init_allowed, level_allowed;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = int(block_values(d, nb) * sizeof(T) + sizeof(int));
+  const int smem = int(Layout(d, nb).bytes(sizeof(T)));
   const dim3 grid(unsigned(N), unsigned(batch), 1);
   // scratch: two states of 3 d^2 + d b values a node, then two inverse
   // buffers of d^2 values a node
@@ -608,7 +497,7 @@ template <typename T>
 int wide_inv(const void* A, void* X, int batch, int d, void* stream) {
   if (!dims_ok(d, 0) || batch < 1) return int(cudaErrorInvalidValue);
   static Allowed allowed;
-  const int smem = int(block_values(d, 0) * sizeof(T) + sizeof(int));
+  const int smem = int(Layout(d, 0).bytes(sizeof(T)));
   return int(launch_plain(block_inv_wide_kernel<T>, allowed,
                           dim3(unsigned(batch), 1, 1), smem,
                           static_cast<cudaStream_t>(stream),

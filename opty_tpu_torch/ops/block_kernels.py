@@ -18,7 +18,9 @@ Both take the public ``(..., d, d)`` layout as it comes (no batch-last
 transpose, no padding of the batch), d = 2..8, float32 or float64.
 ``block_inv`` also takes every other d up to 64 through its wide
 variant (csrc/wide.cu: a thread block per matrix, the matrix in shared
-memory, the same pivoting and order; counted in ``wide_inv_launches``),
+memory, the plain version's algorithm and pivot rule in panels with
+tensor-core updates, equal to it to round-off; counted in
+``wide_inv_launches``),
 which the PCR path's border needs at b = 1 and b > 8 (nlink-9: 41).  On
 an H100 a call of a few tens of matrices is bound by launch latency
 (``empty_launch`` times an empty kernel, that floor); a whole node axis

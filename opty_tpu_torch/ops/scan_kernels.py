@@ -1,34 +1,38 @@
 """Hand-written CUDA kernels for the scan KKT factorization and solve,
 their plain PyTorch versions and their launch counters.
 
-Two kernels, both in csrc/scan.cu, built for Hopper (sm_90a) with nvcc
+Two kernels, each in two builds for Hopper (sm_90a), compiled with nvcc
 at first use and loaded through ctypes (ops/cuda_build.py):
 
 * ``scan_factor``: the forward elimination of nlp/kkt.py:factor_kkt
   (opty_tpu/nlp/kkt.py:225-253) over every node of every lane in one
-  launch, a thread block per lane, a thread per matrix entry.  It takes
-  in the pivot inverses and square products that the Pallas kernels
-  ``_inv_kernel``/``_matmul_kernel`` (opty_tpu/ops/pallas_blocks.py)
-  compute, and the border Schur inverse at its end.
+  launch, a thread block per lane.  It takes in the pivot inverses and
+  square products that the Pallas kernels ``_inv_kernel``/
+  ``_matmul_kernel`` (opty_tpu/ops/pallas_blocks.py) compute, and the
+  border Schur inverse at its end.
 * ``scan_solve``: the whole of nlp/kkt.py:solve_factored
-  (opty_tpu/nlp/kkt.py:256-295) in one launch, a warp per lane, a
-  thread per row.
+  (opty_tpu/nlp/kkt.py:256-295) in one launch, a block per lane.
 
 Both walk the N nodes of a lane in order, so each lane's chain of node
-steps, not bytes, bounds them (csrc/scan.cu).  Arrays are lanes first,
-(..., N, d, d), d = 2..8, a border of b = 0..8 columns, float32 or
-float64.
+steps, not bytes, bounds them.  Arrays are lanes first, (..., N, d, d),
+float32 or float64.  Node blocks of d = 2..8 with a border of b = 0..8
+go to csrc/scan.cu (a thread per matrix entry, counted in
+``factor_launches``/``solve_launches``); every other d = 1..64, b =
+0..64 whose shared memory fits (``wide_smem``) to csrc/scan_wide.cu (a
+block of 256 threads per lane, its products on the FP64 tensor cores in
+float64, a panelled LU inverse; counted in
+``wide_factor_launches``/``wide_solve_launches``), such as the nlink-9
+chain's d = 50, b = 41.
 
 A tensor on the CPU goes to the plain version (``scan_factor_plain``/
 ``scan_solve_plain``: the node loops of the JAX package's ``lax.scan``
 recursions, the CPU path and its parity target); a CUDA tensor goes to
-the kernel, or the wrapper raises.  Each wrapper counts its kernel
-launches in ``factor_launches``/``solve_launches``.
+a kernel, or the wrapper raises.
 
 ``kernel_supported(d, b, N, dtype)`` says, from static shapes alone,
 whether the kernels take a system.  It decides no route: on the card
-a system outside it (d > 8 or b > 8, such as nlink-9's d = 50, b = 41)
-raises with its shape.
+a system outside it (d or b above 64, or a wide shape beyond the
+shared memory, such as d = b = 64 in float64) raises with its shape.
 """
 
 import ctypes
@@ -41,33 +45,83 @@ from .smallblock import block_inv
 
 __all__ = ['scan_factor', 'scan_solve', 'scan_factor_plain',
            'scan_solve_plain', 'check_factor', 'check_solve',
-           'reset_launch_counts', 'kernel_supported', 'SUPPORTED_D',
-           'MAX_B']
+           'reset_launch_counts', 'kernel_supported', 'wide_smem',
+           'SUPPORTED_D', 'MAX_B', 'WIDE_MAX_D', 'WIDE_MAX_B', 'MAX_SMEM']
 
 SUPPORTED_D = tuple(range(2, 9))   # block sizes instantiated in scan.cu
-MAX_B = 8                          # widest border the kernels take
+MAX_B = 8                          # widest border scan.cu takes
+WIDE_MAX_D = 64                    # scan_wide.cu: 1 <= d <= 64,
+WIDE_MAX_B = 64                    # 0 <= b <= 64, within MAX_SMEM
+MAX_SMEM = 227 * 1024              # dynamic shared memory a block may use
+INVERSE_INTS = 128                 # an inverse's two row maps
 
 factor_launches = 0
 solve_launches = 0
+wide_factor_launches = 0
+wide_solve_launches = 0
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
                for name, args in (
                    ('scan_factor', [_VP] * 8 + [_CI] * 4 + [_VP]),
                    ('scan_solve', [_VP] * 9 + [_CI] * 4 + [_VP]))}
+_WIDE_SIGNATURES = {'scan_wide' + name[4:]: args
+                    for name, args in _SIGNATURES.items()}
+# scan_wide_smem(d, b, itemsize, out[2]): the layouts' bytes (factor,
+# solve), which wide_smem must equal (tests/test_torch_cuda.py)
+_WIDE_SIGNATURES['scan_wide_smem'] = [_CI] * 3 + [
+    ctypes.POINTER(ctypes.c_ulonglong)]
 
 
 def reset_launch_counts():
-    global factor_launches, solve_launches
+    global factor_launches, solve_launches, wide_factor_launches, \
+        wide_solve_launches
     factor_launches = 0
     solve_launches = 0
+    wide_factor_launches = 0
+    wide_solve_launches = 0
+
+
+def _narrow(d, b):
+    """Whether csrc/scan.cu's kernels are built for (d, b)."""
+    return d in SUPPORTED_D and 0 <= b <= MAX_B
+
+
+def _ceil(n, m):
+    return -(-n // m) * m
+
+
+def wide_smem(d, b, itemsize):
+    """(factor, solve): the bytes of dynamic shared memory a block of
+    csrc/scan_wide.cu's kernels takes at (d, b) in a dtype of
+    ``itemsize`` bytes (its FactorLayout and SolveLayout).  The factor
+    keeps five d x d matrices (E_k, S_{k-1}^-1, M_k and two D / S
+    buffers) and three d x b (Ft_k, Ft_{k-1}, S^-1 Ft), a region that
+    the border inverse then reuses (so at least b x b), and the b x b
+    border sum, rows padded to a multiple of 4 and to a pitch of
+    ceil8(columns) + 4, then the inverse's 32 scratch rows and its
+    ints; the solve two stages of two d x d matrices, one d x b and one
+    vector, each rounded to 8 values, then five vectors."""
+    pitch = lambda n: _ceil(n, 8) + 4
+    mat = _ceil(d, 4) * pitch(d)
+    matb = _ceil(d, 4) * pitch(b)
+    bb = _ceil(b, 4) * pitch(b)
+    factor = ((max(5 * mat + 3 * matb, bb) + bb
+               + 32 * max(pitch(d), pitch(b))) * itemsize + 4 * INVERSE_INTS)
+    stage = 2 * _ceil(d * d, 8) + _ceil(d * b, 8) + _ceil(d, 8)
+    solve = (2 * stage + 3 * _ceil(d, 8) + 2 * _ceil(b, 8)) * itemsize
+    return factor, solve
 
 
 def kernel_supported(d, b, N, dtype):
     """True when scan_factor and scan_solve take a (d, b, N) system in
     ``dtype`` on the card: a pure function of static shape and dtype."""
-    return (dtype in (torch.float32, torch.float64) and d in SUPPORTED_D
-            and 0 <= b <= MAX_B and N >= 1)
+    if dtype not in (torch.float32, torch.float64) or N < 1:
+        return False
+    if _narrow(d, b):
+        return True
+    return (1 <= d <= WIDE_MAX_D and 0 <= b <= WIDE_MAX_B
+            and max(wide_smem(d, b, dtype.itemsize)) <= MAX_SMEM)
 
 
 # ---------------------------------------------------------------------------
@@ -157,22 +211,33 @@ def scan_solve_plain(S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb):
 # argument checks of the kernels (also run on CPU tensors by the tests)
 # ---------------------------------------------------------------------------
 
-def _check_dims(name, d, b, N):
-    if d not in SUPPORTED_D:
-        raise ValueError('{}: block size d={} is not built (built: {})'
-                         .format(name, d, SUPPORTED_D))
-    if not 0 <= b <= MAX_B:
+def _check_dims(name, d, b, N, dtype):
+    """Raise ValueError, naming the shape, unless a kernel takes it;
+    returns whether it is scan.cu's (narrow) rather than scan_wide.cu's."""
+    if not 1 <= d <= WIDE_MAX_D:
+        raise ValueError('{}: block size d={} is not built (built: 1..{})'
+                         .format(name, d, WIDE_MAX_D))
+    if not 0 <= b <= WIDE_MAX_B:
         raise ValueError('{}: border width b={} exceeds {}'.format(
-            name, b, MAX_B))
+            name, b, WIDE_MAX_B))
     if N < 1:
         raise ValueError('{}: empty node axis'.format(name))
+    if _narrow(d, b):
+        return True
+    need = max(wide_smem(d, b, dtype.itemsize))
+    if need > MAX_SMEM:
+        raise ValueError('{}: d={}, b={} in {} needs {} bytes of shared '
+                         'memory a block (limit {})'.format(
+                             name, d, b, dtype, need, MAX_SMEM))
+    return False
 
 
 def check_factor(D, E, F, Kbb):
     """What scan_factor's kernel takes: D, E (..., N, d, d), F
     (..., N, d, b), Kbb (..., b, b), on one CUDA device in one dtype,
-    contiguous.  Returns (dtype suffix, lanes, N, d, b); raises
-    ValueError on anything else."""
+    contiguous.  Returns (dtype suffix, lanes, N, d, b, whether scan.cu
+    takes it rather than scan_wide.cu); raises ValueError on anything
+    else."""
     name = 'scan_factor'
     if D.ndim < 3 or D.shape[-1] != D.shape[-2] or F.ndim < 3:
         raise ValueError('{}: expected D (..., N, d, d) and F (..., N, d, '
@@ -180,10 +245,10 @@ def check_factor(D, E, F, Kbb):
                              name, tuple(D.shape), tuple(F.shape)))
     lead, (N, d) = D.shape[:-3], D.shape[-3:-1]
     b = F.shape[-1]
-    _check_dims(name, d, b, N)
+    narrow = _check_dims(name, d, b, N, D.dtype)
     suffix = check_cuda(name, (D, E, F, Kbb),
                         (D.shape, D.shape, lead + (N, d, b), lead + (b, b)))
-    return suffix, lead.numel(), N, d, b
+    return suffix, lead.numel(), N, d, b, narrow
 
 
 def check_solve(S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb):
@@ -197,12 +262,12 @@ def check_solve(S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb):
                              name, tuple(S_inv.shape), tuple(Ft.shape)))
     lead, (N, d) = S_inv.shape[:-3], S_inv.shape[-3:-1]
     b = Ft.shape[-1]
-    _check_dims(name, d, b, N)
+    narrow = _check_dims(name, d, b, N, S_inv.dtype)
     suffix = check_cuda(
         name, (S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb),
         (S_inv.shape, S_inv.shape, lead + (N, d, b), S_inv.shape,
          lead + (b, b), lead + (N, d), lead + (b,)))
-    return suffix, lead.numel(), N, d, b
+    return suffix, lead.numel(), N, d, b, narrow
 
 
 def _on_cpu(*tensors):
@@ -220,17 +285,24 @@ def scan_factor(D, E, F, Kbb):
     first, contiguous on the card."""
     if _on_cpu(D, E, F, Kbb):
         return scan_factor_plain(D, E, F, Kbb)
-    suffix, nbatch, N, d, b = check_factor(D, E, F, Kbb)
+    suffix, nbatch, N, d, b, narrow = check_factor(D, E, F, Kbb)
     S_inv, Melim = torch.empty_like(D), torch.empty_like(D)
     Ft, Kinv = torch.empty_like(F), torch.empty_like(Kbb)
     if nbatch:
-        fn = getattr(load('scan', _SIGNATURES), 'scan_factor_' + suffix)
+        if narrow:
+            fn = getattr(load('scan', _SIGNATURES), 'scan_factor_' + suffix)
+        else:
+            fn = getattr(load('scan_wide', _WIDE_SIGNATURES),
+                         'scan_wide_factor_' + suffix)
         launch('scan_factor', fn,
                (D.data_ptr(), E.data_ptr(), F.data_ptr(), Kbb.data_ptr(),
                 S_inv.data_ptr(), Melim.data_ptr(), Ft.data_ptr(),
                 Kinv.data_ptr(), nbatch, d, N, b), D.device)
-        global factor_launches
-        factor_launches += 1
+        global factor_launches, wide_factor_launches
+        if narrow:
+            factor_launches += 1
+        else:
+            wide_factor_launches += 1
     return S_inv, Melim, Ft, Kinv
 
 
@@ -240,14 +312,21 @@ def scan_solve(S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb):
     args = (S_inv, Melim, Ft, E, Kbb_schur_inv, r, rb)
     if _on_cpu(*args):
         return scan_solve_plain(*args)
-    suffix, nbatch, N, d, b = check_solve(*args)
+    suffix, nbatch, N, d, b, narrow = check_solve(*args)
     u, beta = torch.empty_like(r), torch.empty_like(rb)
     if nbatch:
-        fn = getattr(load('scan', _SIGNATURES), 'scan_solve_' + suffix)
+        if narrow:
+            fn = getattr(load('scan', _SIGNATURES), 'scan_solve_' + suffix)
+        else:
+            fn = getattr(load('scan_wide', _WIDE_SIGNATURES),
+                         'scan_wide_solve_' + suffix)
         launch('scan_solve', fn,
                tuple(a.data_ptr() for a in args)
                + (u.data_ptr(), beta.data_ptr(), nbatch, d, N, b),
                r.device)
-        global solve_launches
-        solve_launches += 1
+        global solve_launches, wide_solve_launches
+        if narrow:
+            solve_launches += 1
+        else:
+            wide_solve_launches += 1
     return u, beta

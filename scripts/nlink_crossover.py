@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
-"""Card against CPU on the nlink-9 solve of chip_smoke.py's phase 7a,
-one iteration at a time from a shared state: the card solves the chain
-at N = 60 (phase-7 options, ``kkt_method='cr'``, a float64
-factorization) to each of a few iteration counts k in one chunk from
-the last; there its state is handed to the CPU
+"""Card against CPU on the nlink-9 solve of chip_smoke.py's phase 7a
+(or 7c), one iteration at a time from a shared state: the card solves
+the chain at N = 60 (phase-7 options, ``kkt_method='cr'`` or
+``'scan'``, a float64 factorization) to each of a few iteration counts
+k in one chunk from the last; there its state is handed to the CPU
 (``interop.state_from_numpy``), both take one iteration from it, and
-the two next iterates are compared.  Needs
-a CUDA card:
+the two next iterates are compared.  Needs a CUDA card:
 
-    python3 scripts/nlink_crossover.py [k ...]
+    python3 scripts/nlink_crossover.py [--method cr|scan] [k ...]
 
 Prints one JSON object: for each k, the largest difference of the two
 next x, y, zL and zU relative to the largest entry, the card's mu, and
@@ -18,6 +17,7 @@ the same iteration, and any difference between their full solves is
 round-off amplified along the path.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -31,13 +31,17 @@ def main():
         os.path.abspath(__file__))))
     import chip_smoke
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--method', default='cr', choices=('cr', 'scan'))
     # iterations of the shared state (the first call takes one)
-    ks = sorted(int(a) for a in sys.argv[1:]) or [1, 2, 5, 10, 20, 50,
-                                                  100, 200, 300]
+    ap.add_argument('ks', nargs='*', type=int,
+                    default=[1, 2, 5, 10, 20, 50, 100, 200, 300])
+    args = ap.parse_args()
     prob, guess = chip_smoke.nlink_problem('cuda')
+    steps = chip_smoke.nlink_crossovers(prob, guess, sorted(args.ks),
+                                        kkt_method=args.method)
     print(json.dumps(dict(device=torch.cuda.get_device_name(0),
-                          crossovers=chip_smoke.nlink_crossovers(
-                              prob, guess, ks))))
+                          method=args.method, crossovers=steps)))
 
 
 if __name__ == '__main__':

@@ -1,5 +1,6 @@
 """The CUDA kernels of opty_tpu_torch (csrc/pcr.cu, csrc/blocks.cu,
-csrc/scan.cu, csrc/wide.cu) against their plain versions, on the card.  Marked ``cuda``; without a
+csrc/scan.cu, csrc/wide.cu, csrc/scan_wide.cu) against their plain
+versions, on the card.  Marked ``cuda``; without a
 card every test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -201,9 +202,11 @@ def test_wrapper_refuses_what_the_build_lacks(card):
 # largest block and border, a border wider than the block, N = 1
 WIDE_SHAPES = [(50, 41, 60, 8), (4, 2, 37, 3), (2, 1, 16, 2), (7, 9, 5, 1),
                (64, 64, 20, 2), (3, 12, 9, 2), (6, 0, 1, 1)]
-# the factor and the inverse keep their plain versions' operation order
-# (bitwise on finite inputs); the downsweep differs by torch's reduction
-# order in matvec_nl, amplified through the levels in float32
+# the factor and the inverse sum in another order than their plain
+# versions (FP64 tensor cores, fused multiply-adds, the inverse's
+# elimination and back substitution blocked in panels), and
+# the downsweep by torch's reduction order in matvec_nl: round-off
+# apart, amplified through the levels in float32
 WIDE_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
 
 
@@ -230,7 +233,7 @@ def test_wide_kernels_match_plain(card, d, b, N, B, dtype):
     want = pk.pcr_factor_levels_plain(D, E, F)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
-        assert torch.equal(g, w)
+        assert _rel(g, w) <= WIDE_TOL[dtype]
     A, Bm = got[0], got[1]
     out = pk.pcr_downsweep(A, Bm, r)
     # the downsweep takes no border: d = 3 and 5 keep the narrow kernel
@@ -248,7 +251,8 @@ def test_wide_block_inv_matches_plain(card, d, dtype):
         bk.reset_launch_counts()
         X = bk.block_inv(A)
         assert (bk.inv_launches, bk.wide_inv_launches) == (0, 1)
-        assert torch.equal(X, bk.block_inv_plain(A))
+        assert torch.isfinite(X).all()
+        assert _rel(X, bk.block_inv_plain(A)) <= WIDE_TOL[dtype]
 
 
 def test_graph_capture_runs_without_garbage_collection(card):
@@ -272,7 +276,8 @@ def test_graph_capture_runs_without_garbage_collection(card):
 
 def test_card_raises_beyond_the_kernels(card):
     """A system no kernel takes raises with its shape on the card, in
-    the cr path (a border above 64) and in the scan path (d above 8):
+    the cr path (a border above 64) and in the scan path (d above 64, or
+    d = b = 64 in float64, beyond the wide scan kernels' shared memory):
     nothing falls back to the plain versions there."""
     D, E, F, r = _wide_system(1, 4, 65, 8, torch.float64, card)
     Kbb = torch.eye(65, dtype=torch.float64, device=card)[None] * 10.0
@@ -280,14 +285,19 @@ def test_card_raises_beyond_the_kernels(card):
     with pytest.raises(ValueError, match='b=65'):
         tridiag.pcr_factor(D, E, F, Kbb)
     assert pk.wide_factor_launches == pk.factor_launches == 0
-    Ds = torch.eye(9, dtype=torch.float64, device=card).expand(
-        1, 8, 9, 9).contiguous()
-    with pytest.raises(ValueError, match='d=9'):
+    Ds = torch.eye(65, dtype=torch.float64, device=card).expand(
+        1, 8, 65, 65).contiguous()
+    with pytest.raises(ValueError, match='d=65'):
         sk.scan_factor(Ds, torch.zeros_like(Ds),
-                       torch.zeros(1, 8, 9, 0, dtype=torch.float64,
+                       torch.zeros(1, 8, 65, 0, dtype=torch.float64,
                                    device=card),
                        torch.zeros(1, 0, 0, dtype=torch.float64,
                                    device=card))
+    D, E, F, Kbb, r, rb = _scan_system(1, 4, 64, 64, torch.float64, card)
+    sk.reset_launch_counts()
+    with pytest.raises(ValueError, match='shared memory'):
+        sk.scan_factor(D, E, F, Kbb)
+    assert sk.wide_factor_launches == sk.factor_launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -506,9 +516,9 @@ def test_scan_one_launch_per_call(card):
 def test_scan_wrappers_refuse_bad_input(card):
     D, E, F, Kbb, r, rb = _scan_system(2, 8, 5, 4, torch.float32, card)
     with pytest.raises(ValueError, match='not built'):
-        sk.scan_factor(*_scan_system(2, 8, 9, 4, torch.float32, card)[:4])
+        sk.scan_factor(*_scan_system(2, 8, 65, 4, torch.float32, card)[:4])
     with pytest.raises(ValueError, match='border'):
-        sk.scan_factor(*_scan_system(2, 8, 5, 9, torch.float32, card)[:4])
+        sk.scan_factor(*_scan_system(2, 8, 5, 65, torch.float32, card)[:4])
     with pytest.raises(ValueError, match='share one device'):
         sk.scan_factor(D, E.double(), F, Kbb)
     with pytest.raises(ValueError, match='share one device'):
@@ -591,3 +601,131 @@ def test_default_solve_with_restoration_on_card_equals_cpu(card):
     assert abs(got['iterations'] - want['iterations']) <= 2
     assert abs(got['obj_val'] - want['obj_val']) \
         <= 1e-6 * abs(want['obj_val'])
+
+
+# ---------------------------------------------------------------------------
+# wide scan factorization and solve kernels (csrc/scan_wide.cu)
+# ---------------------------------------------------------------------------
+
+def _wide_scan_blocks(dtype):
+    """chip_smoke.py's phase 3ws blocks: nlink-9's d = 50, b = 41, the
+    smallest wide block d = 9 without a border, and d = 64 with the
+    widest border the shared memory takes (16 in float64, 64 in
+    float32)."""
+    b64 = max(b for b in range(65) if sk.kernel_supported(64, b, 60, dtype))
+    return [(50, 41), (9, 0), (64, b64)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('B', [1, 8, 32])
+def test_wide_scan_kernels_match_plain(card, B, dtype):
+    for d, b in _wide_scan_blocks(dtype):
+        D, E, F, Kbb, r, rb = _scan_system(B, 60, d, b, dtype, card)
+        sk.reset_launch_counts()
+        fac = sk.scan_factor(D, E, F, Kbb)
+        got = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+        assert (sk.factor_launches, sk.solve_launches,
+                sk.wide_factor_launches, sk.wide_solve_launches) == \
+            (0, 0, 1, 1)
+        for g, w in zip(fac, sk.scan_factor_plain(D, E, F, Kbb)):
+            assert g.is_contiguous() and torch.isfinite(g).all()
+            assert _rel(g, w) <= SCAN_TOL[dtype], (d, b)
+        want = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            assert _rel(g, w) <= SCAN_TOL[dtype], (d, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d,b', [(50, 41), (50, 48), (50, 49), (64, 16),
+                                 (64, 17), (64, 64), (9, 0), (1, 3)])
+def test_wide_scan_shared_memory_matches_the_kernel(card, d, b, dtype):
+    """wide_smem, the pure sizing rule that kernel_supported reads, is
+    the bytes csrc/scan_wide.cu's own layouts ask for at launch, at the
+    gate's boundary shapes (d = 50: b = 48 fits in float64, 49 does not;
+    d = 64: 16 and 17)."""
+    import ctypes
+    from opty_tpu_torch.ops.cuda_build import load
+    out = (ctypes.c_ulonglong * 2)()
+    lib = load('scan_wide', sk._WIDE_SIGNATURES)
+    assert lib.scan_wide_smem(d, b, dtype.itemsize, out) == 0
+    assert sk.wide_smem(d, b, dtype.itemsize) == (out[0], out[1])
+
+
+@pytest.mark.parametrize('d,b', [(1, 3), (12, 5), (5, 9), (33, 17)])
+def test_wide_scan_kernels_other_blocks(card, d, b):
+    """Blocks between the classes: d = 1, d or b just past scan.cu's 8,
+    and odd sizes that leave partial tiles."""
+    _check_scan(4, 23, d, b, torch.float64, card)
+
+
+def test_wide_scan_one_launch_per_call(card):
+    for B in (1, 8, 32, 100):
+        D, E, F, Kbb, r, rb = _scan_system(B, 20, 50, 41, torch.float64,
+                                           card)
+        sk.reset_launch_counts()
+        fac = sk.scan_factor(D, E, F, Kbb)
+        sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+        sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+        torch.cuda.synchronize()
+        assert (sk.wide_factor_launches, sk.wide_solve_launches) == (1, 2)
+        sk.scan_factor_plain(D, E, F, Kbb)      # not a launch
+        assert (sk.factor_launches, sk.wide_factor_launches) == (0, 1)
+
+
+def test_wide_scan_singular_lane(card):
+    """A singular pivot at d = 50 makes its lane's outputs non-finite
+    from that node on and leaves the other lanes equal to their plain
+    versions."""
+    dtype = torch.float64
+    D, E, F, Kbb, r, rb = _scan_system(4, 30, 50, 41, dtype, card, seed=3)
+    D[2, 10] = 0.0
+    E[2, 10] = 0.0               # S_10 = D_10 = 0 in lane 2
+    fac = sk.scan_factor(D, E, F, Kbb)
+    want = sk.scan_factor_plain(D, E, F, Kbb)
+    assert not torch.isfinite(want[0][2, 10]).all()
+    assert not torch.isfinite(fac[0][2, 10]).all()
+    assert not torch.isfinite(fac[3][2]).all()
+    good = [0, 1, 3]
+    for g, w in zip(fac, want):
+        assert torch.isfinite(g[good]).all()
+        assert _rel(g[good], w[good]) <= SCAN_TOL[dtype]
+    u, beta = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    assert not torch.isfinite(u[2]).all()
+    assert torch.isfinite(u[good]).all() and torch.isfinite(beta[good]).all()
+
+
+def test_nlink_scan_iteration_on_card_equals_cpu(card):
+    """One interior-point iteration of nlink-9 (N = 12) with
+    kkt_method='scan' and a float64 factorization through the wide scan
+    kernels on the card, against the same iteration through the plain
+    versions on the CPU from the card's state (chip_smoke.py's phase 7c
+    crossovers)."""
+    from opty_tpu_torch import interop
+    from opty_tpu_torch.models.nlink import (n_link_cart_problem,
+                                             n_link_initial_guess)
+    options = dict(kkt_method='scan', factor_dtype=torch.float64,
+                   chunk_iters=1, mu_init=1e-5, use_soc=False,
+                   max_rest_visit=0, dw_decay='hold')
+    card_prob, q_start = n_link_cart_problem(9, 12, device='cuda')
+    cpu_prob, _ = n_link_cart_problem(9, 12, device='cpu')
+    guess = n_link_initial_guess(card_prob, q_start)
+    steps = {}
+    for name, p in (('card', card_prob), ('cpu', cpu_prob)):
+        p.set_solver_options(**options)
+        steps[name] = p._build_solver()[1:]
+    sk.reset_launch_counts()
+    _, state = steps['card'][0](torch.as_tensor(guess, device=card)[None])
+    _, state = steps['card'][1](torch.as_tensor(guess, device=card)[None],
+                                state)
+    _, nxt = steps['card'][1](torch.as_tensor(guess, device=card)[None],
+                              state)
+    torch.cuda.synchronize()
+    assert sk.wide_factor_launches > 0 and sk.wide_solve_launches > 0
+    shared = interop.state_from_numpy(
+        {f: v.detach().cpu().numpy() for f, v in state._asdict().items()},
+        'cpu')
+    _, got = steps['cpu'][1](torch.as_tensor(guess)[None], shared)
+    for f in ('x', 'y', 'zL', 'zU'):
+        want = getattr(nxt, f)[0].cpu().double()
+        assert _rel(getattr(got, f)[0].double(), want) <= 1e-8, f

@@ -2,10 +2,11 @@
 opty_tpu's, on the CPU in float64 with the same numpy inputs: the
 9-link chain's transcription at N = 12 (20 states, 10 inputs, a
 variable node interval, 40 instance constraints: the KKT node block
-d = 50 and border b = 41), a cyclic-reduction factor and solve at that
-block through the plain versions of the wide kernels, the route gate
-``kernel_supported`` of the PCR and scan kernels, and the two-link
-reach solve of tests/test_nlink.py."""
+d = 50 and border b = 41), a cyclic-reduction and a scan factor and
+solve at that block through the plain versions of the wide kernels, the
+route gate ``kernel_supported`` of the PCR and scan kernels with the
+wide scan kernels' shared-memory sizing, and the two-link reach solve
+of tests/test_nlink.py."""
 
 import numpy as np
 import pytest
@@ -16,18 +17,21 @@ import jax.numpy as jnp
 
 from opty_tpu.models.nlink import n_link_cart_problem as jax_problem
 from opty_tpu.models.nlink import n_link_initial_guess as jax_guess
+from opty_tpu.nlp import kkt as jax_kkt
 from opty_tpu.nlp.collocation import \
     make_collocation_nlp_functions as jax_functions
 from opty_tpu.ops import tridiag as jax_tridiag
 from opty_tpu_torch import interop
 from opty_tpu_torch.models.nlink import n_link_cart_problem as torch_problem
 from opty_tpu_torch.models.nlink import n_link_initial_guess as torch_guess
+from opty_tpu_torch.nlp import kkt as torch_kkt
 from opty_tpu_torch.nlp.collocation import \
     make_collocation_nlp_functions as torch_functions
 from opty_tpu_torch.ops import pcr_kernels, scan_kernels
 from opty_tpu_torch.ops import tridiag as torch_tridiag
 from opty_tpu_torch.transcribe.collocator import ConstraintCollocator
 from opty_tpu_torch.transcribe.hessian import make_hvp_seeds
+from test_torch_scan import _random_blocks
 
 N = 12
 # transcription: the same lowered expressions evaluated in another order
@@ -204,6 +208,33 @@ def test_cr_factor_and_solve_at_the_nlink_block():
     assert _rel(beta_t, beta_j) <= 1e-10
 
 
+def test_scan_factor_and_solve_at_the_nlink_block():
+    """A scan factor and solve at nlink-9's block (nz = 30, M = 20, so
+    d = 50; a border of bw = 1 and o = 40, so b = 41) through the plain
+    versions (the CPU route of the wide scan kernels, reached through
+    nlp/kkt.py) against the JAX package's factor_kkt / solve_factored,
+    to 1e-10 relative; no kernel launch is counted."""
+    blocks = _random_blocks(N, 30, 20, 1, 40, seed=3)
+    rng = np.random.default_rng(5)
+    r, rb = rng.normal(size=(N, 50)), rng.normal(size=41)
+    jfac = jax_kkt.factor_kkt(jax_kkt.KKTBlocks(
+        **{k: jnp.asarray(v) for k, v in blocks.items()}))
+    ju, jbeta = jax_kkt.solve_factored(jfac, jnp.asarray(r), jnp.asarray(rb))
+    scan_kernels.reset_launch_counts()
+    fac = torch_kkt.factor_kkt(torch_kkt.KKTBlocks(
+        **{k: torch.as_tensor(v) for k, v in blocks.items()}))
+    assert fac.S_inv.shape == (N, 50, 50) and fac.Ft.shape == (N, 50, 41)
+    for name in jfac._fields:
+        assert _rel(getattr(fac, name), getattr(jfac, name)) <= 1e-10, name
+    u, beta = torch_kkt.solve_factored(fac, torch.as_tensor(r),
+                                       torch.as_tensor(rb))
+    assert _rel(u, ju) <= 1e-10
+    assert _rel(beta, jbeta) <= 1e-10
+    assert (scan_kernels.factor_launches, scan_kernels.solve_launches,
+            scan_kernels.wide_factor_launches,
+            scan_kernels.wide_solve_launches) == (0, 0, 0, 0)
+
+
 F32, F64 = torch.float32, torch.float64
 
 
@@ -223,11 +254,31 @@ def test_pcr_route_gate(args, want):
 
 @pytest.mark.parametrize('args, want', [
     ((5, 4, 501, F64), True), ((2, 0, 1, F32), True), ((8, 8, 9, F64), True),
-    ((50, 41, 60, F64), False), ((9, 0, 60, F64), False),
-    ((5, 9, 60, F64), False), ((5, 4, 0, F64), False),
-    ((5, 4, 60, torch.float16), False)])
+    # the wide kernels (csrc/scan_wide.cu) take nlink-9's block, d or b
+    # from 9 and d = 1, wherever their shared memory fits
+    ((50, 41, 60, F64), True), ((50, 41, 60, F32), True),
+    ((50, 41, 1, F64), True), ((9, 0, 60, F64), True),
+    ((5, 9, 60, F64), True), ((1, 0, 3, F64), True),
+    ((64, 64, 60, F32), True), ((64, 64, 60, F64), False),
+    # the factor's shared memory at d = 64 in float64: b = 16 takes
+    # 225,280 bytes of the 232,448, b = 17 239,488
+    ((64, 16, 60, F64), True), ((64, 17, 60, F64), False),
+    ((50, 48, 60, F64), True), ((50, 49, 60, F64), False),
+    ((65, 0, 60, F32), False), ((5, 65, 60, F32), False),
+    ((5, 4, 0, F64), False), ((5, 4, 60, torch.float16), False)])
 def test_scan_route_gate(args, want):
     assert scan_kernels.kernel_supported(*args) is want
+
+
+@pytest.mark.parametrize('d, b, itemsize, want', [
+    (50, 41, 8, (223872, 116032)), (50, 41, 4, (112192, 58016)),
+    (64, 16, 8, (225280, 150272)), (64, 64, 4, (165888, 100096))])
+def test_wide_scan_shared_memory(d, b, itemsize, want):
+    """The wide scan kernels' shared memory, as csrc/scan_wide.cu lays it
+    out: five padded d x d matrices, three d x b, the b x b border sum
+    and the inverse's scratch (factor); two stages of the node's
+    matrices (solve)."""
+    assert scan_kernels.wide_smem(d, b, itemsize) == want
 
 
 def test_cpu_calls_are_no_plain_route():

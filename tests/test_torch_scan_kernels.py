@@ -91,11 +91,19 @@ def _factor_args(d=5, b=4, dtype=torch.float32):
 
 def test_argument_checks_refuse():
     """What the kernels do not take raises before any launch; called
-    directly on CPU tensors, as the wrappers call them on CUDA ones."""
+    directly on CPU tensors, as the wrappers call them on CUDA ones.
+    d = 9 and b = 9 go to the wide kernels; d or b above 64, and a wide
+    shape beyond the shared memory (d = b = 64 in float64), are refused."""
     with pytest.raises(ValueError, match='not built'):
-        sk.check_factor(*_factor_args(d=9))
+        sk.check_factor(*_factor_args(d=65))
     with pytest.raises(ValueError, match='border'):
-        sk.check_factor(*_factor_args(b=9))
+        sk.check_factor(*_factor_args(b=65))
+    with pytest.raises(ValueError, match='shared memory'):
+        sk.check_factor(*_factor_args(d=64, b=64, dtype=torch.float64))
+    for args in (_factor_args(d=9), _factor_args(b=9),
+                 _factor_args(d=64, b=64)):
+        with pytest.raises(ValueError, match='CUDA device'):
+            sk.check_factor(*args)
     D, E, F, Kbb = _factor_args()
     with pytest.raises(ValueError, match='share one device'):
         sk.check_factor(D, E.double(), F, Kbb)
@@ -105,8 +113,8 @@ def test_argument_checks_refuse():
         sk.check_factor(D, E, F, Kbb[:, :3])
     r, rb = torch.zeros(2, 7, 5), torch.zeros(2, 4)
     with pytest.raises(ValueError, match='not built'):
-        D9, E9, F9, K9 = _factor_args(d=9)
-        sk.check_solve(D9, D9, F9, E9, K9, torch.zeros(2, 7, 9), rb)
+        D9, E9, F9, K9 = _factor_args(d=65)
+        sk.check_solve(D9, D9, F9, E9, K9, torch.zeros(2, 7, 65), rb)
     with pytest.raises(ValueError, match='share one device'):
         sk.check_solve(D, D, F, E, Kbb, r.double(), rb)
     with pytest.raises(ValueError, match='contiguous'):
