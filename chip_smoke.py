@@ -33,7 +33,9 @@ Phases, each reported on its own line(s) with its wall time:
 3ws. wide scan kernels: the scan factor and solve of csrc/scan_wide.cu
    at (d, b) = (50, 41), (9, 0) and (64, the widest border that fits),
    1, 8 and 32 lanes, N = 60, float32 and float64, against their plain
-   versions, timed L2-warm and L2-cold beside their bounds;
+   versions, timed L2-warm and L2-cold beside their bounds, each with
+   the thread block cluster size the wrappers chose; at (50, 41) every
+   cluster size each kernel is built for, checked and timed L2-cold;
 4. reference: a small solve (N = 101, float64 factorization, monotone
    mu, no second-order correction) on the card against the same solve
    on the CPU (the plain versions), once with kkt_method='cr' (4) and
@@ -663,7 +665,11 @@ def check_wide_scan_kernels(sk, name):
     float64; each call must move the wide counters alone.  Timed L2-warm
     and L2-cold beside the bound and the dependent chain of N node
     steps (its time a node), the plain versions at nlink-9's block and
-    B = 1.  Returns {kernel: [records]}."""
+    B = 1.  Each record names the cluster size the wrappers chose
+    (``sk.cluster_size``); at nlink-9's block every cluster size each
+    kernel is built for is also checked against the plain version and
+    timed L2-cold (``candidates_cold_ms``), so the choice can be
+    checked.  Returns {kernel: [records]}."""
     import torch
     flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
     rec = {'scan_factor_wide': [], 'scan_solve_wide': []}
@@ -687,6 +693,30 @@ def check_wide_scan_kernels(sk, name):
                 want = sk.scan_factor_plain(Dm, E, F, Kbb)
                 sol_want = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
                 main = (d, b, batch) == (WIDE_D, WIDE_B, 1)
+                chosen = dict(zip(('scan_factor_wide', 'scan_solve_wide'),
+                                  sk.cluster_size(batch, d, b, dtype)))
+                candidates = {'scan_factor_wide': {}, 'scan_solve_wide': {}}
+                if (d, b) == (WIDE_D, WIDE_B):
+                    for kname, sizes, launch, ref in (
+                            ('scan_factor_wide', sk.FACTOR_CLUSTERS,
+                             lambda c: sk.launch_wide_factor(Dm, E, F, Kbb,
+                                                             c), want),
+                            ('scan_solve_wide', sk.SOLVE_CLUSTERS,
+                             lambda c: sk.launch_wide_solve(
+                                 *fac[:3], E, fac[3], r, rb, c), sol_want)):
+                        for c in sizes:
+                            got = launch(c)
+                            torch.cuda.synchronize()
+                            err = max(rel_err(g, w)[1]
+                                      for g, w in zip(got, ref) if w.numel())
+                            if not all(torch.isfinite(g).all().item()
+                                       for g in got) or err > TOL_SCAN[tag]:
+                                fail('{} {} cluster {}: rel err {:.3e} > '
+                                     '{:.0e}'.format(kname, where, c, err,
+                                                     TOL_SCAN[tag]))
+                            candidates[kname][c] = cold_ms(
+                                lambda: launch(c), flush, reps=5,
+                                sleep_cycles=WIDE_SLEEP)
                 counts = scan_counts(d, b, WIDE_NODES, batch,
                                      Dm.element_size())
                 for kname, got, ref, fn, plain_fn, (nbytes, ops) in (
@@ -713,19 +743,47 @@ def check_wide_scan_kernels(sk, name):
                     bms, by = bound(nbytes, ops, name, tag)
                     rec[kname].append(dict(
                         dtype=tag, batch=batch, d=d, b=b, nodes=WIDE_NODES,
+                        cluster=chosen[kname],
+                        candidates_cold_ms=candidates[kname] or None,
                         max_abs_err=aerr, max_rel_err=err, ms=ms,
                         cold_ms=cold, us_per_node=cold / WIDE_NODES * 1e3,
                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                         bytes=nbytes, flops=ops, library_ms=None))
-                    log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e} '
-                        'ms warm={:.5f} cold={:.5f} ({:.3f} us a node of the '
-                        'chain) plain_ms={} bound_us={:.2f} ({}; {:.2f} MB, '
-                        '{:.4f} GFLOP) cold/bound={:.1f}'.format(
-                            kname, where, err, aerr, ms, cold,
+                    log('kernel {} {} cluster={}: max_rel_err={:.3e} '
+                        'max_abs_err={:.3e} ms warm={:.5f} cold={:.5f} '
+                        '({:.3f} us a node of the chain) plain_ms={} '
+                        'bound_us={:.2f} ({}; {:.2f} MB, {:.4f} GFLOP) '
+                        'cold/bound={:.1f}{}'.format(
+                            kname, where, chosen[kname], err, aerr, ms, cold,
                             cold / WIDE_NODES * 1e3,
                             'not timed' if plain_ms is None
                             else '{:.2f}'.format(plain_ms), bms * 1e3, by,
-                            nbytes / 1e6, ops / 1e9, cold / bms))
+                            nbytes / 1e6, ops / 1e9, cold / bms,
+                            '; cold ms by cluster size {}'.format(
+                                ' '.join('{}: {:.4f}'.format(c, t) for c, t
+                                         in candidates[kname].items()))
+                            if candidates[kname] else ''))
+    # past the factor's threshold (2 B > 132 SMs) one block a lane
+    # should win: both sizes at B = 132, float64
+    batch = sk.SMS
+    Dm, E, F, Kbb, _, _ = scan_system(torch.float64, batch, WIDE_NODES,
+                                      WIDE_D, WIDE_B)
+    want = sk.scan_factor_plain(Dm, E, F, Kbb)
+    times = {}
+    for c in sk.FACTOR_CLUSTERS:
+        got = sk.launch_wide_factor(Dm, E, F, Kbb, c)
+        err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+        if err > TOL_SCAN['float64']:
+            fail('scan_factor_wide float64 B={} cluster {}: rel err '
+                 '{:.3e}'.format(batch, c, err))
+        times[c] = cold_ms(lambda: sk.launch_wide_factor(Dm, E, F, Kbb, c),
+                           flush, reps=5, sleep_cycles=WIDE_SLEEP)
+    log('kernel scan_factor_wide float64 B={} d={} b={} N={}: cold ms by '
+        'cluster size {} (cluster_size chose {})'.format(
+            batch, WIDE_D, WIDE_B, WIDE_NODES,
+            ' '.join('{}: {:.4f}'.format(c, t) for c, t in times.items()),
+            sk.cluster_size(batch, WIDE_D, WIDE_B, torch.float64)[0]))
+    rec['scan_factor_wide_full_card'] = dict(batch=batch, cold_ms=times)
     del flush
     return rec
 
@@ -1530,11 +1588,14 @@ def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
                 / max(iterations['nlink_scan'], 1),
                 max_abs_err=max(r['max_abs_err'] for r in shapes),
                 max_rel_err=max(r['max_rel_err'] for r in shapes),
-                dtype=main['dtype'], batch=1, ms=main['ms'],
-                cold_ms=main['cold_ms'], us_per_node=main['us_per_node'],
+                dtype=main['dtype'], batch=1, cluster=main['cluster'],
+                ms=main['ms'], cold_ms=main['cold_ms'],
+                us_per_node=main['us_per_node'],
                 in_solve_ms=in_solve['nlink_scan'].get(kname),
                 plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
                 bound_by=main['bound_by'], library_ms=None, shapes=shapes)
+            if kname == 'scan_factor_wide':
+                entry['full_card'] = blocks['scan_factor_wide_full_card']
         elif kname in WIDE_KERNELS:
             shapes = blocks[kname]
             where = dict(dtype='float32', batch=1)

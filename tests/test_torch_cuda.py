@@ -276,9 +276,10 @@ def test_graph_capture_runs_without_garbage_collection(card):
 
 def test_card_raises_beyond_the_kernels(card):
     """A system no kernel takes raises with its shape on the card, in
-    the cr path (a border above 64) and in the scan path (d above 64, or
-    d = b = 64 in float64, beyond the wide scan kernels' shared memory):
-    nothing falls back to the plain versions there."""
+    the cr path (a border above 64) and in the scan path (d above 64):
+    nothing falls back to the plain versions there.  d = b = 64 in
+    float64, beyond one block's shared memory, runs on a cluster of two
+    (the factor's chain and the products off it apart)."""
     D, E, F, r = _wide_system(1, 4, 65, 8, torch.float64, card)
     Kbb = torch.eye(65, dtype=torch.float64, device=card)[None] * 10.0
     pk.reset_launch_counts()
@@ -295,9 +296,12 @@ def test_card_raises_beyond_the_kernels(card):
                                    device=card))
     D, E, F, Kbb, r, rb = _scan_system(1, 4, 64, 64, torch.float64, card)
     sk.reset_launch_counts()
-    with pytest.raises(ValueError, match='shared memory'):
-        sk.scan_factor(D, E, F, Kbb)
-    assert sk.wide_factor_launches == sk.factor_launches == 0
+    assert sk.cluster_size(1, 64, 64, torch.float64)[0] == 2
+    assert sk.cluster_size(100, 64, 64, torch.float64)[0] == 2
+    for g, w in zip(sk.scan_factor(D, E, F, Kbb),
+                    sk.scan_factor_plain(D, E, F, Kbb)):
+        assert _rel(g, w) <= SCAN_TOL[torch.float64]
+    assert (sk.wide_factor_launches, sk.factor_launches) == (1, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -610,15 +614,25 @@ def test_default_solve_with_restoration_on_card_equals_cpu(card):
 def _wide_scan_blocks(dtype):
     """chip_smoke.py's phase 3ws blocks: nlink-9's d = 50, b = 41, the
     smallest wide block d = 9 without a border, and d = 64 with the
-    widest border the shared memory takes (16 in float64, 64 in
-    float32)."""
+    widest border the shared memory takes (64 in both dtypes: in
+    float64 on a cluster of two)."""
     b64 = max(b for b in range(65) if sk.kernel_supported(64, b, 60, dtype))
     return [(50, 41), (9, 0), (64, b64)]
+
+
+def _wide_scan_clusters(d, b, dtype):
+    """The cluster sizes each wide scan kernel is built for that the
+    shared memory takes at (d, b)."""
+    return ([c for c in sk.FACTOR_CLUSTERS
+             if max(sk.wide_smem(d, b, dtype.itemsize, c)) <= sk.MAX_SMEM],
+            list(sk.SOLVE_CLUSTERS))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('B', [1, 8, 32])
 def test_wide_scan_kernels_match_plain(card, B, dtype):
+    """Through the wrappers (cluster_size's choice), then at every
+    cluster size the build takes at the shape."""
     for d, b in _wide_scan_blocks(dtype):
         D, E, F, Kbb, r, rb = _scan_system(B, 60, d, b, dtype, card)
         sk.reset_launch_counts()
@@ -627,29 +641,60 @@ def test_wide_scan_kernels_match_plain(card, B, dtype):
         assert (sk.factor_launches, sk.solve_launches,
                 sk.wide_factor_launches, sk.wide_solve_launches) == \
             (0, 0, 1, 1)
-        for g, w in zip(fac, sk.scan_factor_plain(D, E, F, Kbb)):
+        want = sk.scan_factor_plain(D, E, F, Kbb)
+        for g, w in zip(fac, want):
             assert g.is_contiguous() and torch.isfinite(g).all()
             assert _rel(g, w) <= SCAN_TOL[dtype], (d, b)
-        want = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
-        for g, w in zip(got, want):
+        want_sol = sk.scan_solve_plain(*fac[:3], E, fac[3], r, rb)
+        for g, w in zip(got, want_sol):
             assert torch.isfinite(g).all()
             assert _rel(g, w) <= SCAN_TOL[dtype], (d, b)
+        factors, solves = _wide_scan_clusters(d, b, dtype)
+        for c in factors:
+            for g, w in zip(sk.launch_wide_factor(D, E, F, Kbb, c), want):
+                assert torch.isfinite(g).all()
+                assert _rel(g, w) <= SCAN_TOL[dtype], (d, b, c)
+        for c in solves:
+            for g, w in zip(sk.launch_wide_solve(*fac[:3], E, fac[3], r, rb,
+                                                 c), want_sol):
+                assert torch.isfinite(g).all()
+                assert _rel(g, w) <= SCAN_TOL[dtype], (d, b, c)
+
+
+@pytest.mark.parametrize('N', [1, 2, 5, 9])
+def test_wide_scan_clusters_beyond_the_nodes(card, N):
+    """A solve cluster of more blocks than nodes (blocks without a node
+    take part in its barriers only), and the factor's cluster of two at
+    N = 1 (the off-chain block's only node after the chain's last)."""
+    D, E, F, Kbb, r, rb = _scan_system(3, N, 50, 41, torch.float64, card)
+    want = [a.contiguous() for a in sk.scan_factor_plain(D, E, F, Kbb)]
+    for c in sk.FACTOR_CLUSTERS:
+        for g, w in zip(sk.launch_wide_factor(D, E, F, Kbb, c), want):
+            assert _rel(g, w) <= SCAN_TOL[torch.float64], c
+    want_sol = sk.scan_solve_plain(*want[:3], E, want[3], r, rb)
+    for c in sk.SOLVE_CLUSTERS:
+        got = sk.launch_wide_solve(*want[:3], E, want[3], r, rb, c)
+        for g, w in zip(got, want_sol):
+            assert _rel(g, w) <= SCAN_TOL[torch.float64], c
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('cluster', [1, 2, 4, 8])
 @pytest.mark.parametrize('d,b', [(50, 41), (50, 48), (50, 49), (64, 16),
                                  (64, 17), (64, 64), (9, 0), (1, 3)])
-def test_wide_scan_shared_memory_matches_the_kernel(card, d, b, dtype):
-    """wide_smem, the pure sizing rule that kernel_supported reads, is
-    the bytes csrc/scan_wide.cu's own layouts ask for at launch, at the
-    gate's boundary shapes (d = 50: b = 48 fits in float64, 49 does not;
-    d = 64: 16 and 17)."""
+def test_wide_scan_shared_memory_matches_the_kernel(card, d, b, cluster,
+                                                     dtype):
+    """wide_smem, the pure sizing rule that kernel_supported and
+    cluster_size read, is the bytes csrc/scan_wide.cu's own layouts ask
+    for at launch, at every cluster size, at the old gate's boundary
+    shapes (one block's factor takes d = 50 up to b = 48 in float64,
+    d = 64 up to b = 16; a cluster of two every b)."""
     import ctypes
     from opty_tpu_torch.ops.cuda_build import load
     out = (ctypes.c_ulonglong * 2)()
     lib = load('scan_wide', sk._WIDE_SIGNATURES)
-    assert lib.scan_wide_smem(d, b, dtype.itemsize, out) == 0
-    assert sk.wide_smem(d, b, dtype.itemsize) == (out[0], out[1])
+    assert lib.scan_wide_smem(d, b, dtype.itemsize, cluster, out) == 0
+    assert sk.wide_smem(d, b, dtype.itemsize, cluster) == (out[0], out[1])
 
 
 @pytest.mark.parametrize('d,b', [(1, 3), (12, 5), (5, 9), (33, 17)])
@@ -676,23 +721,29 @@ def test_wide_scan_one_launch_per_call(card):
 def test_wide_scan_singular_lane(card):
     """A singular pivot at d = 50 makes its lane's outputs non-finite
     from that node on and leaves the other lanes equal to their plain
-    versions."""
+    versions, at every cluster size."""
     dtype = torch.float64
     D, E, F, Kbb, r, rb = _scan_system(4, 30, 50, 41, dtype, card, seed=3)
     D[2, 10] = 0.0
     E[2, 10] = 0.0               # S_10 = D_10 = 0 in lane 2
-    fac = sk.scan_factor(D, E, F, Kbb)
     want = sk.scan_factor_plain(D, E, F, Kbb)
     assert not torch.isfinite(want[0][2, 10]).all()
-    assert not torch.isfinite(fac[0][2, 10]).all()
-    assert not torch.isfinite(fac[3][2]).all()
     good = [0, 1, 3]
-    for g, w in zip(fac, want):
-        assert torch.isfinite(g[good]).all()
-        assert _rel(g[good], w[good]) <= SCAN_TOL[dtype]
-    u, beta = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
-    assert not torch.isfinite(u[2]).all()
-    assert torch.isfinite(u[good]).all() and torch.isfinite(beta[good]).all()
+    for fc in (None,) + sk.FACTOR_CLUSTERS:
+        fac = sk.scan_factor(D, E, F, Kbb) if fc is None else \
+            sk.launch_wide_factor(D, E, F, Kbb, fc)
+        assert not torch.isfinite(fac[0][2, 10]).all()
+        assert not torch.isfinite(fac[3][2]).all()
+        for g, w in zip(fac, want):
+            assert torch.isfinite(g[good]).all()
+            assert _rel(g[good], w[good]) <= SCAN_TOL[dtype]
+        for sc in (None,) + sk.SOLVE_CLUSTERS:
+            u, beta = sk.scan_solve(*fac[:3], E, fac[3], r, rb) \
+                if sc is None else \
+                sk.launch_wide_solve(*fac[:3], E, fac[3], r, rb, sc)
+            assert not torch.isfinite(u[2]).all()
+            assert torch.isfinite(u[good]).all()
+            assert torch.isfinite(beta[good]).all()
 
 
 def test_nlink_scan_iteration_on_card_equals_cpu(card):

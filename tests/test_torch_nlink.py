@@ -259,26 +259,64 @@ def test_pcr_route_gate(args, want):
     ((50, 41, 60, F64), True), ((50, 41, 60, F32), True),
     ((50, 41, 1, F64), True), ((9, 0, 60, F64), True),
     ((5, 9, 60, F64), True), ((1, 0, 3, F64), True),
-    ((64, 64, 60, F32), True), ((64, 64, 60, F64), False),
-    # the factor's shared memory at d = 64 in float64: b = 16 takes
-    # 225,280 bytes of the 232,448, b = 17 239,488
-    ((64, 16, 60, F64), True), ((64, 17, 60, F64), False),
-    ((50, 48, 60, F64), True), ((50, 49, 60, F64), False),
+    ((64, 64, 60, F32), True),
+    # one block's factor at d = 64 in float64: b = 16 takes 225,280 bytes
+    # of the 232,448, b = 17 239,488; a cluster of two takes every b up
+    # to 64 (226,816 bytes at b = 64, the off-chain block's)
+    ((64, 64, 60, F64), True),
+    ((64, 16, 60, F64), True), ((64, 17, 60, F64), True),
+    ((50, 48, 60, F64), True), ((50, 49, 60, F64), True),
     ((65, 0, 60, F32), False), ((5, 65, 60, F32), False),
     ((5, 4, 0, F64), False), ((5, 4, 60, torch.float16), False)])
 def test_scan_route_gate(args, want):
     assert scan_kernels.kernel_supported(*args) is want
 
 
-@pytest.mark.parametrize('d, b, itemsize, want', [
-    (50, 41, 8, (223872, 116032)), (50, 41, 4, (112192, 58016)),
-    (64, 16, 8, (225280, 150272)), (64, 64, 4, (165888, 100096))])
-def test_wide_scan_shared_memory(d, b, itemsize, want):
-    """The wide scan kernels' shared memory, as csrc/scan_wide.cu lays it
-    out: five padded d x d matrices, three d x b, the b x b border sum
-    and the inverse's scratch (factor); two stages of the node's
-    matrices (solve)."""
-    assert scan_kernels.wide_smem(d, b, itemsize) == want
+@pytest.mark.parametrize('d, b, itemsize, cluster, want', [
+    (50, 41, 8, 1, (223872, 122304)), (50, 41, 4, 1, (112192, 61152)),
+    (64, 16, 8, 1, (225280, 198784)), (64, 64, 4, 1, (165888, 99776)),
+    (50, 41, 8, 2, (146944, 122304)), (50, 41, 4, 2, (73728, 61152)),
+    (64, 64, 8, 2, (226816, 199552)), (64, 64, 8, 1, (331264, 199552)),
+    (50, 41, 8, 8, (146944, 122304))])
+def test_wide_scan_shared_memory(d, b, itemsize, cluster, want):
+    """The wide scan kernels' shared memory a block, as csrc/scan_wide.cu
+    lays it out: the factor's chain (five padded d x d matrices) and
+    off-chain products (three d x b, in a cluster two d x d read back,
+    the b x b border sum) in one block, or the larger of the two in a
+    cluster, each with the inverse's scratch; the solve's ring (its
+    largest phase's stages: three of E_{k+1} and S_k^-1 here) and its
+    vectors, at every cluster size."""
+    assert scan_kernels.wide_smem(d, b, itemsize, cluster) == want
+
+
+@pytest.mark.parametrize('B, want', [
+    (1, (2, 8)), (8, (2, 8)), (9, (2, 4)), (16, (2, 4)), (17, (2, 2)),
+    (32, (2, 2)), (33, (2, 2)), (34, (2, 1)),
+    (66, (2, 1)), (67, (1, 1)), (132, (1, 1)), (200, (1, 1))])
+def test_wide_scan_cluster_size_at_the_nlink_block(B, want):
+    """nlink-9's (50, 41): the factor's cluster of two while its 2 B
+    blocks fit the 132 SMs, the solve's largest of 8, 4, 2 while B c
+    blocks fit half of them, in either dtype; one block beyond."""
+    for dtype in (F32, F64):
+        assert scan_kernels.cluster_size(B, 50, 41, dtype) == want
+
+
+@pytest.mark.parametrize('d, b, dtype, B, want', [
+    # no border: nothing off the chains, one block
+    (9, 0, F64, 1, (1, 1)), (64, 0, F64, 1, (1, 1)),
+    # beyond one block's shared memory the factor keeps two at any B
+    (64, 64, F64, 1, (2, 8)), (64, 64, F64, 200, (2, 1)),
+    (50, 49, F64, 100, (2, 1)), (64, 64, F32, 100, (1, 1)),
+    # small blocks follow the batch as nlink-9's
+    (1, 3, F64, 4, (2, 8)), (12, 5, F32, 40, (2, 1)),
+    (12, 5, F32, 70, (1, 1))])
+def test_wide_scan_cluster_size_by_block_class(d, b, dtype, B, want):
+    c = scan_kernels.cluster_size(B, d, b, dtype)
+    assert c == want
+    assert c[0] in scan_kernels.FACTOR_CLUSTERS
+    assert c[1] in scan_kernels.SOLVE_CLUSTERS
+    assert max(scan_kernels.wide_smem(d, b, dtype.itemsize, c[0])) \
+        <= scan_kernels.MAX_SMEM
 
 
 def test_cpu_calls_are_no_plain_route():

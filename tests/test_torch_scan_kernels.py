@@ -92,16 +92,16 @@ def _factor_args(d=5, b=4, dtype=torch.float32):
 def test_argument_checks_refuse():
     """What the kernels do not take raises before any launch; called
     directly on CPU tensors, as the wrappers call them on CUDA ones.
-    d = 9 and b = 9 go to the wide kernels; d or b above 64, and a wide
-    shape beyond the shared memory (d = b = 64 in float64), are refused."""
+    d = 9 and b = 9 go to the wide kernels, as does d = b = 64 in
+    float64 (on a cluster of two blocks a lane); d or b above 64 are
+    refused."""
     with pytest.raises(ValueError, match='not built'):
         sk.check_factor(*_factor_args(d=65))
     with pytest.raises(ValueError, match='border'):
         sk.check_factor(*_factor_args(b=65))
-    with pytest.raises(ValueError, match='shared memory'):
-        sk.check_factor(*_factor_args(d=64, b=64, dtype=torch.float64))
     for args in (_factor_args(d=9), _factor_args(b=9),
-                 _factor_args(d=64, b=64)):
+                 _factor_args(d=64, b=64),
+                 _factor_args(d=64, b=64, dtype=torch.float64)):
         with pytest.raises(ValueError, match='CUDA device'):
             sk.check_factor(*args)
     D, E, F, Kbb = _factor_args()
