@@ -29,7 +29,11 @@ Phases, each reported on its own line(s) with its wall time:
    lanes, float32 and float64, against their plain versions within
    stated tolerances, and the float64 wide solve against the dense
    system, timed L2-warm and L2-cold beside their bounds (the inverse
-   beside torch.linalg.inv_ex);
+   beside torch.linalg.inv_ex); the downsweep also bitwise equal to
+   pcr_downsweep_in_order in both of its branches, there and at
+   WIDE_SWEEP_SHAPES, the gate's edge and a lane with a NaN, each call
+   printed with its plan (cluster, stages, shared memory, threads) and
+   beside its zero-stage branch's time;
 3ws. wide scan kernels: the scan factor and solve of csrc/scan_wide.cu
    at (d, b) = (50, 41), (9, 0) and (64, the widest border that fits),
    1, 8 and 32 lanes, N = 60, float32 and float64, against their plain
@@ -63,7 +67,7 @@ Phases, each reported on its own line(s) with its wall time:
 6. profile: a few iterations of each path at 32 lanes, once counting
    host syncs and once under torch.profiler (device busy time, kernel
    launches, the per-launch time of each hand-written kernel); the
-   nlink-9 chain at N = 60 on 8 lanes for 4 iterations, with the cr
+   nlink-9 chain at N = 60 on 8 lanes for 2 iterations, with the cr
    path's float32 factor and with the scan path's float64 factor;
 7a. nlink: the nlink-9 chain at N = 60 through ``n_link_cart_problem``
    -> ``n_link_initial_guess`` -> ``Problem.solve`` with the options of
@@ -72,7 +76,14 @@ Phases, each reported on its own line(s) with its wall time:
    recorded CPU run of the same solve (NLINK_CPU), and one iteration
    from its state at a few iteration counts, taken by the card and by
    the CPU, must agree to NLINK_STEP_TOL; counters reset just before
-   and read just after, the wide kernels required;
+   and read just after, the wide kernels required; after it, the wide
+   downsweep's launches an iteration and its device time a call in the
+   solve (its first iterations again under torch.profiler), their
+   product its device time an iteration;
+7d. reproducibility: 7a's solve for REPRO_ITERS iterations twice in one
+   process from the same start, every step fingerprinted: whether the
+   iterates are bitwise equal and, where not, the first iteration and
+   step that differ (printed, not gated);
 7c. the same solve with kkt_method='scan' and a float64 factorization
    (the JAX package's own gait-scale configuration) through the wide
    scan kernels: it must converge, no PCR kernel may launch, and one
@@ -165,6 +176,13 @@ WIDE_SLEEP = 5 * 10 ** 8          # cycles of the sleep kernel, ~250 ms
 # lets torch reduce in its own
 TOL_WIDE = {'float64': 1e-11, 'float32': 1e-4}
 TOL_WIDE_SWEEP = {'float64': 1e-11, 'float32': 1e-4}
+# the wide downsweep is held bitwise to pcr_downsweep_in_order (its sums
+# in the kernel's order, in torch) at nlink-9's block and at these
+# (d, N, B) besides: the smallest and largest blocks, an odd N, and the
+# route gate's edge (WIDE_SWEEP_EDGE, by dtype), where the plan takes
+# zero stages
+WIDE_SWEEP_SHAPES = ((1, 60, 1), (9, 60, 1), (64, 60, 1), (50, 37, 1))
+WIDE_SWEEP_EDGE = {'float32': (50, 9296, 1), 'float64': (50, 4640, 1)}
 # the float64 factor + downsweep + border solve (ops/tridiag.py) against
 # torch.linalg.solve of the dense bordered system, relative
 TOL_WIDE_RESIDUAL = 1e-10
@@ -484,6 +502,80 @@ def wide_system(dtype, batch, d=WIDE_D, b=WIDE_B, nodes=WIDE_NODES,
     return to(Dm), to(E), to(F), to(r)
 
 
+def same_bits(got, want):
+    """Whether two float tensors hold the same bits (the sign of a zero
+    included), NaN in the same places."""
+    import torch
+    nan = torch.isnan(got)
+    bits = torch.int64 if got.element_size() == 8 else torch.int32
+    return bool(got.shape == want.shape and got.dtype == want.dtype
+                and torch.equal(nan, torch.isnan(want))
+                and torch.equal(torch.where(nan, 0, got).view(bits),
+                                torch.where(nan, 0, want).view(bits)))
+
+
+def check_wide_sweep_shapes(pk):
+    """Phase 3w: the wide downsweep bitwise equal to
+    pcr_downsweep_in_order, and within TOL_WIDE_SWEEP of its plain
+    version, at WIDE_SWEEP_SHAPES and the gate's edge in both of
+    its branches (the plan's, and the zero-stage branch on the narrow
+    kernel's node split), and at nlink-9's block on four lanes with a
+    NaN in one lane's levels and an infinite multiplier at a boundary
+    node; levels drawn on the card from a seed, scaled as a diagonally
+    dominant system's."""
+    import torch
+    from opty_tpu_torch.ops.tridiag import num_levels
+    gen = torch.Generator(device='cuda')
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        shapes = list(WIDE_SWEEP_SHAPES) + [WIDE_SWEEP_EDGE[tag]]
+        for d, N, batch in shapes + [(WIDE_D, WIDE_NODES, 4)]:
+            gen.manual_seed(d * N + batch)
+            L = num_levels(N)
+            draw = lambda *shape: torch.randn(*shape, generator=gen,
+                                              device='cuda', dtype=dtype)
+            A, Bm = draw(batch, L, d, d, N) / d, draw(batch, L, d, d, N) / d
+            r = draw(batch, d, N)
+            poisoned = batch == 4
+            if poisoned:
+                A[2, 1, 3, 4, 10] = float('nan')
+                Bm[1, 0, 0, 0, N - 1] = float('inf')
+            plan = pk.launch_plan('wide_downsweep', batch, d, 0, N, dtype)
+            pk.reset_launch_counts()
+            got = pk.pcr_downsweep(A, Bm, r)
+            zero = pk.launch_wide_downsweep(
+                A, Bm, r, pk.wide_direct_plan(batch, d, N, dtype))
+            torch.cuda.synchronize()
+            counts = (pk.wide_downsweep_launches,
+                      pk.wide_downsweep_direct_launches)
+            if counts != (2, 1 if plan.stages else 2):
+                fail('phase 3w: wide downsweep launches {} at d={} N={}'
+                     .format(counts, d, N))
+            want = pk.pcr_downsweep_in_order(A, Bm, r)
+            where = '{} d={} N={} B={}{}'.format(
+                tag, d, N, batch, ' (a NaN and an inf in the levels)'
+                if poisoned else '')
+            if not (same_bits(got, want) and same_bits(zero, want)):
+                fail('wide pcr_downsweep {}: not bitwise equal to '
+                     'pcr_downsweep_in_order (plan {}, zero-stage branch '
+                     '{})'.format(where, same_bits(got, want),
+                                  same_bits(zero, want)))
+            if poisoned:
+                note = '{} NaN'.format(int(torch.isnan(got).sum()))
+            else:
+                err = rel_err(got, pk.pcr_downsweep_plain(A, Bm, r))[1]
+                if not err <= TOL_WIDE_SWEEP[tag]:
+                    fail('wide pcr_downsweep {}: rel err {:.3e} > {:.0e}'
+                         .format(where, err, TOL_WIDE_SWEEP[tag]))
+                note = 'rel err {:.3e} against the plain version'.format(err)
+            log('kernel pcr_downsweep_wide {}: plan cluster {}, {} stages, '
+                '{} B, {} threads; both branches bitwise equal to '
+                'pcr_downsweep_in_order; {}'.format(
+                    where, plan.cluster, plan.stages, plan.smem_bytes,
+                    plan.threads, note))
+            del A, Bm, r, got, zero, want
+
+
 def wide_residual(batch):
     """The float64 wide PCR path end to end (ops/tridiag.py: the factor,
     the border Schur inverse, the downsweep and the back substitution)
@@ -564,6 +656,18 @@ def check_wide_kernels(pk, bk, name):
                     or serr > TOL_WIDE_SWEEP[tag]:
                 fail('wide pcr_downsweep {}: rel err {:.3e}'.format(where,
                                                                     serr))
+            sweep_plan = pk.launch_plan('wide_downsweep', batch, WIDE_D, 0,
+                                        WIDE_NODES, dtype)
+            direct_plan = pk.wide_direct_plan(batch, WIDE_D, WIDE_NODES,
+                                              dtype)
+            in_order = pk.pcr_downsweep_in_order(A, Bm, r)
+            direct = pk.launch_wide_downsweep(A, Bm, r, direct_plan)
+            if not (same_bits(s_got, in_order) and same_bits(direct,
+                                                              in_order)):
+                fail('wide pcr_downsweep {}: not bitwise equal to '
+                     'pcr_downsweep_in_order (plan {}, zero-stage branch '
+                     '{})'.format(where, same_bits(s_got, in_order),
+                                  same_bits(direct, in_order)))
             f_bytes, s_bytes = pcr_bytes(Dm.element_size(), batch,
                                          WIDE_NODES, L, WIDE_D, WIDE_B)
             f_ops, s_ops = flop_counts(WIDE_D, WIDE_B, WIDE_NODES, L, batch)
@@ -581,17 +685,46 @@ def check_wide_kernels(pk, bk, name):
                 cold = cold_ms(fn, flush, reps=10, sleep_cycles=WIDE_SLEEP)
                 plain_ms = timed(plain_fn, 1, 1)
                 bms, by = bound(nbytes, ops, name, tag)
+                extra, note = {}, ''
+                if kname == 'pcr_downsweep_wide':
+                    # the zero-stage branch on the narrow kernel's node
+                    # split: the design before the ring, timed beside
+                    zero = lambda: pk.launch_wide_downsweep(A, Bm, r,
+                                                            direct_plan)
+                    extra = dict(
+                        bitwise_in_order=True, cluster=sweep_plan.cluster,
+                        stages=sweep_plan.stages,
+                        smem_bytes=sweep_plan.smem_bytes,
+                        threads=sweep_plan.threads,
+                        rows_per_block=sweep_plan.rows_per_block,
+                        zero_stage_ms=device_ms(
+                            zero, reps=20, sleep_cycles=WIDE_SLEEP)[0],
+                        zero_stage_cold_ms=cold_ms(
+                            zero, flush, reps=10, sleep_cycles=WIDE_SLEEP),
+                        zero_stage_cluster=direct_plan.cluster)
+                    note = ('; plan: cluster {} ({} rows a block), {} stages, '
+                            '{} B of shared memory, {} threads; bitwise '
+                            'equal to pcr_downsweep_in_order; the zero-stage '
+                            'branch (cluster {}, A and B read in the sums) '
+                            'warm={:.5f} cold={:.5f}'.format(
+                                sweep_plan.cluster, sweep_plan.rows_per_block,
+                                sweep_plan.stages, sweep_plan.smem_bytes,
+                                sweep_plan.threads, direct_plan.cluster,
+                                extra['zero_stage_ms'],
+                                extra['zero_stage_cold_ms']))
                 rec[kname].append(dict(
                     dtype=tag, batch=batch, d=WIDE_D, b=WIDE_B,
                     nodes=WIDE_NODES, max_abs_err=aerr, max_rel_err=err,
                     ms=ms, cold_ms=cold, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, bytes=nbytes, flops=ops, library_ms=None))
+                    bound_by=by, bytes=nbytes, flops=ops, library_ms=None,
+                    **extra))
                 log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e}; ms '
-                    'warm={:.5f} cold={:.5f} '
-                    'plain_ms={:.2f} bound_us={:.2f} ({}; {:.1f} MB, {:.3f} '
-                    'GFLOP) cold/bound={:.1f}'.format(
-                        kname, where, err, aerr, ms, cold, plain_ms, bms * 1e3, by, nbytes / 1e6, ops / 1e9,
-                        cold / bms))
+                    'warm={:.5f} cold={:.5f} plain_ms={:.2f} bound_us={:.2f} '
+                    '({}; {:.1f} MB, {:.3f} GFLOP) cold/bound={:.1f}{}'.format(
+                        kname, where, err, aerr, ms, cold, plain_ms,
+                        bms * 1e3, by, nbytes / 1e6, ops / 1e9, cold / bms,
+                        note))
+    check_wide_sweep_shapes(pk)
     for batch in (1, 8):
         resid = wide_residual(batch)
         log('wide pcr path float64 B={} d={} b={} N={}: factor + border '
@@ -1557,6 +1690,154 @@ def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
     return launches, rec
 
 
+def sweep_in_solve(prob, guess, iters=1):
+    """The wide downsweep's device time a call inside phase 7a's solve:
+    its first ``iters`` iterations (the initialization included) again
+    under torch.profiler (the device only).  Returns (ms a call, calls
+    profiled)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prob.set_solver_options(kkt_method='cr', factor_dtype=torch.float64,
+                            **dict(NLINK_OPTIONS, max_iter=iters))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prob.solve(guess)
+        torch.cuda.synchronize()
+    prob.set_solver_options(max_iter=NLINK_OPTIONS['max_iter'])
+    calls, total = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and 'pcr_wide_downsweep<' in e.key:
+            calls += e.count
+            total += e.self_device_time_total
+    if not calls:
+        fail('7a: the profiler saw no wide downsweep in the solve')
+    return total / calls / 1e3, calls
+
+
+# the hooks of the reproducibility probe (phase 7d): module attributes
+# through which the solver reaches its steps, fingerprinted in call order
+REPRO_HOOKS = (('opty_tpu_torch.ops.pcr_kernels', ('pcr_factor_levels',
+                                                    'pcr_downsweep')),
+               ('opty_tpu_torch.ops.block_kernels', ('block_inv',)),
+               ('opty_tpu_torch.ops.tridiag', ('pcr_factor', 'pcr_solve')))
+REPRO_ITERS = 30
+
+
+def fingerprint(obj, out):
+    """Append to ``out``, for each tensor in ``obj`` (nested tuples,
+    lists, dicts, named tuples), the sum of its bit patterns in 16-bit
+    words, reduced on its device (exact in 64 bits below 2^47 words):
+    equal tensors give equal sums, and a change in any bit almost surely
+    changes it."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().contiguous().view(-1)
+        if t.element_size() == 1:
+            t = t.view(torch.uint8).to(torch.int64)
+        elif t.numel():
+            t = t.view(torch.int16).to(torch.int64) & 0xffff
+        out.append(t.sum(dtype=torch.int64))
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            fingerprint(v, out)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            fingerprint(v, out)
+
+
+def reproducibility(prob, guess):
+    """Phase 7d: phase 7a's solve (cr, float64 factor) for REPRO_ITERS
+    iterations, twice in this process from the same start.  Every step
+    on the way is fingerprinted in call order (``fingerprint`` of the
+    outputs of the solver's steps module, of the NLP callbacks, and of
+    the PCR and border-inverse entry points, REPRO_HOOKS), each tagged
+    with its iteration (a call of steps.monotone_barrier_update opens
+    one).  Prints whether the iterates are bitwise equal and, where not,
+    the first iteration and the first step whose outputs differ.  Not a
+    gate.  Returns the record."""
+    import importlib
+    import inspect
+    import torch
+    from opty_tpu_torch import problem as problem_mod
+    from opty_tpu_torch.nlp import steps
+    calls, sums, where = [], [], {'it': 0}
+
+    def hooked(name, fn):
+        def call(*args, **kwargs):
+            if name == 'steps.monotone_barrier_update':
+                where['it'] += 1
+            out = fn(*args, **kwargs)
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                n = len(sums)
+                fingerprint(out, sums)
+                calls.append((where['it'], name, n, len(sums)))
+            return out
+        return call
+
+    saved = []
+
+    def patch(mod, attr, name):
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, hooked(name, getattr(mod, attr)))
+
+    for modname, attrs in REPRO_HOOKS:
+        mod = importlib.import_module(modname)
+        for attr in attrs:
+            patch(mod, attr, '{}.{}'.format(modname.rsplit('.', 1)[1], attr))
+    for attr, fn in list(vars(steps).items()):
+        if inspect.isfunction(fn) and fn.__module__ == steps.__name__:
+            patch(steps, attr, 'steps.' + attr)
+    make = problem_mod.make_collocation_nlp_functions
+
+    def make_hooked(*args, **kwargs):
+        fns, scale = make(*args, **kwargs)
+        return fns._replace(**{
+            f: hooked('fns.' + f, getattr(fns, f)) for f in fns._fields
+            if callable(getattr(fns, f))}), scale
+    saved.append((problem_mod, 'make_collocation_nlp_functions', make))
+    problem_mod.make_collocation_nlp_functions = make_hooked
+    runs = []
+    try:
+        for _ in range(2):
+            del calls[:], sums[:]
+            where['it'] = 0
+            x, _ = nlink_solve(prob, guess, torch.float64,
+                               max_iter=REPRO_ITERS)
+            values = torch.stack(sums).cpu().tolist() if sums else []
+            runs.append((x, [(k, name, values[i:j])
+                             for k, name, i, j in calls]))
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+    (x1, l1), (x2, l2) = runs
+    first = next((a for a, b in zip(l1, l2) if a != b), None)
+    if first is None and len(l1) != len(l2):
+        first = (None, 'the runs made {} and {} hooked calls'.format(
+            len(l1), len(l2)), None)
+    index = None if first is None else l1.index(first) \
+        if first in l1 else min(len(l1), len(l2))
+    equal = first is None and np.array_equal(x1.view(np.int64),
+                                              x2.view(np.int64))
+    rec = dict(iterations=REPRO_ITERS, bitwise_equal=bool(equal),
+               steps_logged=len(l1),
+               first_iteration=None if first is None else first[0],
+               first_step=None if first is None else first[1],
+               first_call=index)
+    log('7d reproducibility: nlink-{} N={} cr float64, {} iterations twice '
+        'from the same start in one process, {} hooked steps a run: the '
+        'iterates are {}'.format(
+            NLINK_LINKS, NLINK_NODES, REPRO_ITERS, len(l1),
+            'bitwise equal' if equal else
+            'NOT bitwise equal; the first step whose outputs differ: {} in '
+            'iteration {} (call {} of the run)'.format(
+                rec['first_step'], rec['first_iteration'], index)
+            if first is not None else
+            'NOT bitwise equal in the solution, every hooked step equal'))
+    return rec
+
+
 def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
     """The JSON entries, each at the shape and dtype its path runs it:
     the PCR kernels at the main path's B = 32, N = 501 in float32 (the
@@ -1613,6 +1894,10 @@ def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
                 plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
                 bound_by=main['bound_by'], library_ms=main['library_ms'],
                 shapes=shapes)
+            if kname == 'pcr_downsweep_wide':
+                entry.update({k: main[k] for k in (
+                    'cluster', 'stages', 'smem_bytes', 'threads',
+                    'zero_stage_ms', 'zero_stage_cold_ms')})
         elif kname in pcr or kname in scan:
             shapes = pcr.get(kname) or scan[kname]
             path = 'cr' if kname in pcr else 'scan'
@@ -1778,12 +2063,12 @@ def run(torch, counters, pk, bk, sk, children):
         return prob, guess[None] + 0.01 * rng.standard_normal(
             (lanes, guess.size))
     profiles['nlink'] = phase(
-        '6 profile nlink', iteration_profile, counters, 'nlink', 8, 4,
+        '6 profile nlink', iteration_profile, counters, 'nlink', 8, 2,
         dict(NLINK_OPTIONS, kkt_method='cr', factor_dtype=torch.float32),
         nlink_lanes)
     profiles['nlink_scan'] = phase(
         '6 profile nlink scan', iteration_profile, counters, 'nlink scan', 8,
-        4, dict(NLINK_OPTIONS, kkt_method='scan', factor_dtype=torch.float64),
+        2, dict(NLINK_OPTIONS, kkt_method='scan', factor_dtype=torch.float64),
         nlink_lanes)
     in_solve = {p: v[0] for p, v in profiles.items()}
 
@@ -1797,6 +2082,16 @@ def run(torch, counters, pk, bk, sk, children):
         '7a nlink float64', nlink_path, counters, 'nlink float64', prob,
         guess, torch.float64, NLINK_CPU, crossovers=NLINK_CROSSOVERS,
         cpu_prob=cpu_prob)
+    sweep_ms, sweep_calls = phase('7a wide downsweep in the solve',
+                                  sweep_in_solve, prob, guess)
+    per_iter = nlink_f64['pcr_downsweep_wide'] / max(rec_f64['iterations'],
+                                                     1)
+    log('nlink float64: pcr_downsweep_wide {} launches in {} iterations '
+        '({:.3f} an iteration), {:.2f} us a call in the solve (profiler, its '
+        'first {} calls): {:.4f} ms of device time an iteration ({})'.format(
+            nlink_f64['pcr_downsweep_wide'], rec_f64['iterations'], per_iter,
+            sweep_ms * 1e3, sweep_calls, per_iter * sweep_ms, smi))
+    phase('7d reproducibility', reproducibility, prob, guess)
     nlink_scan, rec_scan = phase(
         '7c nlink scan float64', nlink_path, counters, 'nlink scan float64',
         prob, guess, torch.float64, kkt_method='scan',

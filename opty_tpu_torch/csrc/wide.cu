@@ -44,11 +44,31 @@
 //   use 60 of the 132 SMs; more SMs a node (a cluster splitting the
 //   products' rows) is not built.
 // * The downsweep, by reading the stored levels (2 L d^2 N values an
-//   instance).  The design of pcr.cu's downsweep with d a runtime value:
-//   an instance on a thread block cluster, r in shared memory, a thread
-//   per (node, row) looping over its further pairs, neighbours in other
-//   blocks read through distributed shared memory, one cluster barrier a
-//   level.
+//   instance, 7.2 MB in float at d = 50, N = 60).  A and B do not depend
+//   on r, so every level could be in flight before the sums need it;
+//   only r carries the dependence from level to level.  An instance
+//   runs on a cluster of up to 16 blocks that split its d rows (block q
+//   owns rows [q d / C, (q + 1) d / C) at every node), so one row of one
+//   level of A (or B), d x N values, is one contiguous run of device
+//   memory.  A unit of the stream is that run of A and of B, brought
+//   into a ring of shared-memory stages by bulk asynchronous copies
+//   (TMA, cp.async.bulk) with a full and an empty mbarrier; a run that is
+//   not 16-byte aligned has its ragged ends copied by cp.async beside it.
+//   A producer warp keeps the ring full (up to two levels ahead) while
+//   the other warps sum out of shared memory only, a thread per (row,
+//   node).  Each block keeps all of r in shared memory; after a level
+//   it sends its rows of the new r to every other block of the cluster
+//   as one bulk copy between shared memories each, counted by the
+//   receiver's mbarrier, so no cluster barrier stands between levels.
+//   One SM streams ~62 GB/s this way (scripts/bulk_copy_rate.py), so at
+//   one instance the 16 blocks, not the device memory, bound the stream.
+//   The plan (ops/pcr_kernels.py:launch_plan('wide_downsweep')) picks the
+//   cluster so that the batch's clusters fit the card at once (16 blocks
+//   at one instance) and the stages.  Where two units cannot fit beside
+//   r (large N) it picks zero stages, and the kernel takes its other
+//   branch: the design of pcr.cu's downsweep with a runtime d (nodes
+//   split over the cluster, A and B read from device memory inside the
+//   sums, the neighbours read from their blocks' shared memory).
 // * block_inv_wide, at the PCR border's 8-32 matrices, by launch latency
 //   and the inverse's chain of panels.
 //
@@ -58,7 +78,9 @@
 // bitwise as the CUDA-core design with in-order sums did: bitwise
 // equality is given up for the tensor cores and the panels.  The
 // downsweep sums each row in order where the plain version's matvec_nl
-// lets torch reduce in its own.
+// lets torch reduce in its own: both of its branches give the bits of
+// ops/pcr_kernels.py:pcr_downsweep_in_order (a product, then a sum, over
+// j ascending; ta and tb apart; then (r - ta) - tb).
 
 #include <atomic>
 #include <cstddef>
@@ -81,6 +103,10 @@ constexpr int kMaxD = 64;
 constexpr int kMaxB = 64;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxDevices = 64;
+
+__host__ __device__ constexpr size_t align16(size_t bytes) {
+  return (bytes + 15) & ~size_t(15);
+}
 
 // Shared memory of a factor level, in values: Ab (A, then B), M (D'),
 // O1 and O2 (d x d operands), Fb (F') and O3 (a d x b operand), then an
@@ -302,32 +328,367 @@ block_inv_wide_kernel(const T* __restrict__ A, T* __restrict__ Xout, int d) {
                 [&](int i, int j, T v) { Xout[off + i * d + j] = v; });
 }
 
-// The downsweep of pcr.cu with a runtime d.  Node g of the instance lives
-// in block g / npb of the cluster, at local index g % npb; a neighbour
-// outside [0, N) reads as zero.  Shared memory per block: r, two
-// ping-pong copies of d planes of npb values.
+// The staged downsweep's shared memory (bytes): 2 M + 3 mbarriers (a
+// full and an empty one for each of M = max(stages, rows) units in turn,
+// two for the exchange of r, one for r's first copy) and a zero; r twice
+// (ping-pong, rows of P values: N rounded up to 16 bytes); then `stages`
+// units, each a slab of A and a slab of B holding d x N values at the
+// 16-byte phase of their source in device memory, so that the interior
+// of the run copies in bulk.  Unit u's barriers are u % M: M >= rows, so
+// a barrier serves one unit of a level, and a parity wait for a unit
+// cannot take another unit's phase for its own.  Mirrored by
+// ops/pcr_kernels.py:wide_sweep_smem.
+struct SweepLayout {
+  size_t r, rbuf, slab, slots, total;
+  int M, P;
+  __host__ __device__ SweepLayout(int d, int N, int stages, int rows,
+                                  size_t es) {
+    M = stages > rows ? stages : rows;
+    P = int(align16(size_t(N) * es) / es);
+    r = align16((2 * size_t(M) + 4) * sizeof(unsigned long long));
+    rbuf = align16(size_t(d) * P * es);
+    slab = align16(size_t(d) * N * es) + 16;
+    slots = r + 2 * rbuf;
+    total = slots + size_t(stages) * 2 * slab;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return unsigned(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar,
+                                         unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the completion of the phase of `parity`.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The cluster barrier in halves, by threads that may diverge (no
+// .aligned): arrive (relaxed: it publishes nothing) and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Bring the n values at src into `slot` at src's 16-byte phase and have
+// `bar` (two arrivals a copy) complete when they are there: the ragged
+// ends by cp.async (at most 15 bytes each), tracked by an arrival on
+// their completion; the 16-byte-aligned interior by one bulk copy
+// (TMA), announced by the other arrival with its byte count.  One
+// thread.
+template <typename T>
+__device__ __forceinline__ void run_copy(unsigned char* slot, const T* src,
+                                         size_t n, unsigned long long* bar) {
+  const size_t a = reinterpret_cast<size_t>(src);
+  T* dst = reinterpret_cast<T*>(slot + (a & 15));
+  const size_t lo = (a + 15) & ~size_t(15);
+  const size_t hi = (a + n * sizeof(T)) & ~size_t(15);
+  const size_t head = lo < hi ? (lo - a) / sizeof(T) : n;
+  const size_t tail = lo < hi ? (hi - a) / sizeof(T) : n;
+  for (size_t e = 0; e < head; ++e) wide::copy_async(dst + e, src + e);
+  for (size_t e = tail; e < n; ++e) wide::copy_async(dst + e, src + e);
+  const unsigned b = smem_u32(bar);
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(b) : "memory");
+  const unsigned bytes = lo < hi ? unsigned(hi - lo) : 0u;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(b), "r"(bytes) : "memory");
+  if (bytes) {
+    const unsigned to = smem_u32(slot + (lo - (a & ~size_t(15))));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(to),
+        "l"(reinterpret_cast<const void*>(lo)), "r"(bytes), "r"(b)
+        : "memory");
+  }
+}
+
+// Where unit u (row i0 + u % nr of level u / nr) of the stored levels M0
+// starts in device memory, and its slab of A (b = 0) or B (b = 1) in its
+// stage.
+template <typename T>
+__device__ __forceinline__ const T* unit_src(const T* M0, int u, int nr,
+                                             int i0, size_t level,
+                                             size_t plane) {
+  const int l = u / nr;
+  return M0 + size_t(l) * level + size_t(i0 + u - l * nr) * plane;
+}
+
+__device__ __forceinline__ unsigned char* unit_slot(unsigned char* smem,
+                                                    const SweepLayout& lay,
+                                                    int u, int stages,
+                                                    int b) {
+  return smem + lay.slots + (size_t(u % stages) * 2 + b) * lay.slab;
+}
+
+// The run at src as run_copy placed it in `slot`.
+template <typename T>
+__device__ __forceinline__ const T* unit_slab(const T* src,
+                                              const unsigned char* slot) {
+  return reinterpret_cast<const T*>(slot +
+                                    (reinterpret_cast<size_t>(src) & 15));
+}
+
+// ta = sum over j of a[j N] r_m[j], tb likewise of b and r_p, each in
+// order (a product, then a sum); r_m and r_p at strides sm and sp (0: a
+// neighbour outside [0, N), the one zero).  The loads of kBatch terms
+// are issued before their sums, so that the sums' chain, not the
+// loads' latency, sets the pace.
+constexpr int kBatch = 8;
+
+template <typename T>
+__device__ __forceinline__ void row_sums(const T* a, const T* b,
+                                         const T* rm, int sm, const T* rp,
+                                         int sp, int d, int N, T& ta,
+                                         T& tb) {
+  ta = a[0] * rm[0];
+  tb = b[0] * rp[0];
+  int j = 1;
+  for (; j + kBatch <= d; j += kBatch) {
+    T pa[kBatch], pb[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      pa[k] = a[(j + k) * N] * rm[(j + k) * sm];
+      pb[k] = b[(j + k) * N] * rp[(j + k) * sp];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      ta = ta + pa[k];
+      tb = tb + pb[k];
+    }
+  }
+  for (; j < d; ++j) {
+    ta = ta + a[j * N] * rm[j * sm];
+    tb = tb + b[j * N] * rp[j * sp];
+  }
+}
+
+// A barrier of the consumer warps alone (named barrier 1).
+__device__ __forceinline__ void consumers_sync(int consumers) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(consumers) : "memory");
+}
+
+// The staged branch of pcr_wide_downsweep (see the note at the top).  The
+// block's last warp produces: its lane 0 copies r into the first r buffer
+// (in one bulk copy where its rows need no padding), then issues the units
+// in order, each into stage u % stages once the empty barrier of the
+// stage's previous unit says that the N threads that read it are done.
+// The other warps consume: a thread per (row, node) waits for its unit's
+// full barrier, sums in order, arrives on the empty barrier and writes
+// its new r into the block's own rows of the next r buffer (the last
+// level to device memory).  Then the consumers meet at a named barrier,
+// and lane c of the first warp copies the block's rows into block c's
+// buffer with one bulk copy between shared memories, whose bytes
+// complete block c's exchange barrier; every block waits for all the
+// other rows on its own.  r is ping-pong: a block's rows of level l + 1
+// go out only after it has all of level l's, so after every block has
+// read level l - 1's buffer, which they overwrite, and after its own
+// copies of level l - 1 out of that buffer have landed.  Cluster
+// barriers only at the start (every block's barriers are set before any
+// copy into it) and at the end (no block leaves while a copy out of it
+// may run).
+template <typename T>
+__device__ __forceinline__ void sweep_staged(
+    const T* __restrict__ A0, const T* __restrict__ B0,
+    const T* __restrict__ r0, T* __restrict__ out0, int N, int d,
+    int levels, int csize, int rank, int stages, unsigned char* smem) {
+  const int i0 = rank * d / csize;
+  const int nr = (rank + 1) * d / csize - i0;
+  const size_t plane = size_t(d) * N, level = plane * d;
+  const SweepLayout lay(d, N, stages, (d + csize - 1) / csize, sizeof(T));
+  const int M = lay.M;
+  const int P = lay.P;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + M;
+  unsigned long long* xbar = empty + M;
+  unsigned long long* rbar = xbar + 2;
+  // after the barriers, a zero that stands for the neighbours outside
+  // [0, N)
+  T* zero = reinterpret_cast<T*>(rbar + 1);
+  // r comes in one bulk copy where its rows need no padding
+  const bool r_bulk = P == N && (reinterpret_cast<size_t>(r0) & 15) == 0;
+  // r ping-pong: buffer p at rb + p * rstride, row j at j P
+  T* rb = reinterpret_cast<T*>(smem + lay.r);
+  const size_t rstride = lay.rbuf / sizeof(T);
+  const int units = levels * nr;
+  const int tid = int(threadIdx.x);
+  const int consumers = int(blockDim.x) - 32;
+  if (tid == 0) {
+    for (int k = 0; k < M; ++k) {
+      bar_init(full + k, 4);          // two copies a unit
+      bar_init(empty + k, unsigned(N));  // a thread per node of the row
+    }
+    bar_init(xbar, 1);
+    bar_init(xbar + 1, 1);
+    bar_init(rbar, 2);
+    *zero = T(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every block's barriers are set before any copy into it
+  cluster_arrive_relaxed();
+  cluster_wait();
+
+  if (tid >= consumers) {
+    if (tid == consumers) {
+      if (r_bulk) run_copy(smem + lay.r, r0, plane, rbar);
+      for (int u = 0; u < units; ++u) {
+        if (u >= stages) {
+          bar_wait(empty + (u - stages) % M,
+                   unsigned((u - stages) / M) & 1u);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+        unsigned long long* bar = full + u % M;
+        run_copy(unit_slot(smem, lay, u, stages, 0),
+                 unit_src(A0, u, nr, i0, level, plane), plane, bar);
+        run_copy(unit_slot(smem, lay, u, stages, 1),
+                 unit_src(B0, u, nr, i0, level, plane), plane, bar);
+      }
+    }
+    // no block leaves while a copy out of its shared memory may run
+    cluster_arrive_relaxed();
+    cluster_wait();
+    return;
+  }
+
+  // r into the first buffer, the loads of a pass issued before its stores
+  if (r_bulk) bar_wait(rbar, 0);
+  for (int e0 = r_bulk ? d * N : tid; e0 < d * N; e0 += consumers * kBatch) {
+    T v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = e0 + k * consumers;
+      if (e < d * N) v[k] = r0[e];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = e0 + k * consumers;
+      if (e < d * N) rb[(e / N) * P + e % N] = v[k];
+    }
+  }
+  consumers_sync(consumers);
+  const unsigned own_bytes = unsigned(size_t(nr) * P * sizeof(T));
+  const unsigned in_bytes = unsigned(size_t(d - nr) * P * sizeof(T));
+  int s = 1;
+  for (int l = 0; l < levels; ++l) {
+    const T* rc = rb + (l & 1) * rstride;
+    T* rn = rb + ((l + 1) & 1) * rstride;
+    const bool last = l + 1 == levels;
+    unsigned long long* xb = xbar + ((l + 1) & 1);
+    if (!last && tid == 0 && csize > 1)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(smem_u32(xb)), "r"(in_bytes) : "memory");
+    for (int e = tid; e < nr * N; e += consumers) {
+      const int q = e / N, g = e - (e / N) * N;
+      const int u = l * nr + q;
+      bar_wait(full + u % M, unsigned(u / M) & 1u);
+      const T* a = unit_slab(unit_src(A0, u, nr, i0, level, plane),
+                             unit_slot(smem, lay, u, stages, 0)) + g;
+      const T* b = unit_slab(unit_src(B0, u, nr, i0, level, plane),
+                             unit_slot(smem, lay, u, stages, 1)) + g;
+      // a neighbour outside [0, N) is a zero multiplied in: its column
+      // of r is read as the one zero, at stride 0
+      const bool vm = g - s >= 0, vp = g + s < N;
+      T ta, tb;
+      row_sums(a, b, vm ? rc + (g - s) : zero, vm ? P : 0,
+               vp ? rc + (g + s) : zero, vp ? P : 0, d, N, ta, tb);
+      bar_arrive(empty + u % M);
+      const T v = (rc[(i0 + q) * P + g] - ta) - tb;
+      if (last)
+        out0[(i0 + q) * N + g] = v;
+      else
+        rn[(i0 + q) * P + g] = v;
+    }
+    if (last) break;
+    // the block's rows of the new r complete, and every read of this r
+    // done; lane c of the first warp copies them to block c, whose
+    // exchange barrier counts the bytes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync(consumers);
+    if (tid < csize && tid != rank) {
+      unsigned dst, bar;
+      const unsigned src = smem_u32(rn + size_t(i0) * P);
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                   : "=r"(dst) : "r"(src), "r"(tid));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                   : "=r"(bar) : "r"(smem_u32(xb)), "r"(tid));
+      asm volatile(
+          "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
+          "::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src),
+          "r"(own_bytes), "r"(bar)
+          : "memory");
+    }
+    if (csize > 1) bar_wait(xb, unsigned(l >> 1) & 1u);
+    s *= 2;
+  }
+  // no block leaves while a copy out of its shared memory may run
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
+// The downsweep: r <- r - A_l r_{g-s} - B_l r_{g+s} through every level,
+// an instance on a cluster of `csize` blocks (grid: batch * csize).
+// stages > 0: block q owns rows [q d / C, (q + 1) d / C) at every node,
+// the levels streamed through `stages` units of shared memory
+// (sweep_staged).  stages == 0: node g of the instance lives in block
+// g / npb at local index g % npb, every row; shared memory: r, two
+// ping-pong copies of d planes of npb values; A and B are read from
+// device memory.  Either way a neighbour outside [0, N) reads as zero.
 template <typename T>
 __global__ void __launch_bounds__(kSweepThreads)
 pcr_wide_downsweep(const T* __restrict__ Ain, const T* __restrict__ Bin,
                    const T* __restrict__ rin, T* __restrict__ rout, int N,
-                   int d, int levels, int csize, int npb) {
+                   int d, int levels, int csize, int npb, int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = int(cluster.block_rank());
   const size_t inst = blockIdx.x / csize;   // clusters are consecutive
+  const size_t nodes = size_t(N);
+  const size_t dd = size_t(d) * d * nodes;
+  const T* A0 = Ain + inst * levels * dd;
+  const T* B0 = Bin + inst * levels * dd;
+  const int tid = int(threadIdx.x), nthreads = int(blockDim.x);
+
+  if (stages > 0) {
+    sweep_staged(A0, B0, rin + inst * d * nodes, rout + inst * d * nodes, N,
+                 d, levels, csize, rank, stages, smem_raw);
+    return;
+  }
+
   const int k0 = rank * npb;
   const int n = max(0, min(npb, N - k0));
   const int pairs = d * n;
   T* r0 = reinterpret_cast<T*>(smem_raw);
   T* r1 = r0 + d * npb;
-  const size_t nodes = size_t(N);
-  const size_t dd = size_t(d) * d * nodes;
-  const T* A0 = Ain + inst * levels * dd;
-  const T* B0 = Bin + inst * levels * dd;
 
   // pair e is (row e / n, local node e % n): a warp's loads of one plane
   // coalesce
-  for (int e = threadIdx.x; e < pairs; e += blockDim.x) {
+  for (int e = tid; e < pairs; e += nthreads) {
     const int i = e / n, kk = e - (e / n) * n;
     r0[i * npb + kk] = rin[(inst * d + i) * nodes + k0 + kk];
   }
@@ -335,7 +696,7 @@ pcr_wide_downsweep(const T* __restrict__ Ain, const T* __restrict__ Bin,
 
   int s = 1;
   for (int l = 0; l < levels; ++l) {
-    for (int e = threadIdx.x; e < pairs; e += blockDim.x) {
+    for (int e = tid; e < pairs; e += nthreads) {
       const int i = e / n, kk = e - (e / n) * n;
       const int g = k0 + kk;
       const bool vm = g - s >= 0, vp = g + s < N;
@@ -361,7 +722,7 @@ pcr_wide_downsweep(const T* __restrict__ Ain, const T* __restrict__ Bin,
     r1 = t;
     s *= 2;
   }
-  for (int e = threadIdx.x; e < pairs; e += blockDim.x) {
+  for (int e = tid; e < pairs; e += nthreads) {
     const int i = e / n, kk = e - (e / n) * n;
     rout[(inst * d + i) * nodes + k0 + kk] = r0[i * npb + kk];
   }
@@ -461,12 +822,21 @@ int wide_factor(const void* Dm, const void* E, const void* F, void* A,
 template <typename T>
 int wide_downsweep(const void* A, const void* B, const void* r, void* out,
                    int batch, int d, int N, int levels, int cluster, int npb,
-                   int threads, int smem, void* stream) {
-  if (!dims_ok(d, 0) || batch < 1 || cluster < 1 || cluster > kMaxCluster ||
-      npb < 1 || size_t(cluster) * npb < size_t(N) || threads < 1 ||
-      threads > kSweepThreads || smem < 0 ||
-      size_t(smem) < 2 * size_t(d) * npb * sizeof(T))
+                   int threads, int smem, int stages, void* stream) {
+  if (!dims_ok(d, 0) || batch < 1 || N < 1 || levels < 1 || cluster < 1 ||
+      cluster > kMaxCluster || threads < 1 || threads > kSweepThreads ||
+      smem < 0 || stages < 0)
     return int(cudaErrorInvalidValue);
+  if (stages > 0) {
+    // a warp of consumers and the producer's warp at least
+    if (cluster > d || threads < 64 || threads % 32 ||
+        size_t(smem) < SweepLayout(d, N, stages, (d + cluster - 1) / cluster,
+                                   sizeof(T)).total)
+      return int(cudaErrorInvalidValue);
+  } else if (npb < 1 || size_t(cluster) * npb < size_t(N) ||
+             size_t(smem) < 2 * size_t(d) * npb * sizeof(T)) {
+    return int(cudaErrorInvalidValue);
+  }
   static Allowed allowed;
   cudaError_t err = configure(pcr_wide_downsweep<T>, allowed, smem, cluster);
   if (err != cudaSuccess) {
@@ -488,7 +858,7 @@ int wide_downsweep(const void* A, const void* B, const void* r, void* out,
   err = cudaLaunchKernelEx(&cfg, pcr_wide_downsweep<T>,
                            static_cast<const T*>(A), static_cast<const T*>(B),
                            static_cast<const T*>(r), static_cast<T*>(out), N,
-                           d, levels, cluster, npb);
+                           d, levels, cluster, npb, stages);
   const cudaError_t last = cudaGetLastError();
   return int(err != cudaSuccess ? err : last);
 }
@@ -509,8 +879,10 @@ int wide_inv(const void* A, void* X, int batch, int d, void* stream) {
 // Plain C interface (loaded with ctypes).  Every entry returns the
 // cudaError_t of its launches; 0 means launched.  pcr_wide_factor makes
 // levels + 1 launches; its scratch holds 2 (3 d^2 + d b) + 2 d^2 values
-// for each node of each instance.  pcr_wide_downsweep takes the launch
-// plan of ops/pcr_kernels.py, as pcr_downsweep does.
+// for each node of each instance.  pcr_wide_downsweep takes the plan of
+// ops/pcr_kernels.py:launch_plan('wide_downsweep') and refuses one that
+// leaves a row or node unowned, a ring smaller than a level of units, or
+// too little shared memory.
 extern "C" {
 
 int pcr_wide_factor_f32(const void* Dm, const void* E, const void* F,
@@ -532,17 +904,17 @@ int pcr_wide_factor_f64(const void* Dm, const void* E, const void* F,
 int pcr_wide_downsweep_f32(const void* A, const void* B, const void* r,
                            void* out, int batch, int d, int N, int levels,
                            int cluster, int npb, int threads, int smem,
-                           void* stream) {
+                           int stages, void* stream) {
   return wide_downsweep<float>(A, B, r, out, batch, d, N, levels, cluster,
-                               npb, threads, smem, stream);
+                               npb, threads, smem, stages, stream);
 }
 
 int pcr_wide_downsweep_f64(const void* A, const void* B, const void* r,
                            void* out, int batch, int d, int N, int levels,
                            int cluster, int npb, int threads, int smem,
-                           void* stream) {
+                           int stages, void* stream) {
   return wide_downsweep<double>(A, B, r, out, batch, d, N, levels, cluster,
-                                npb, threads, smem, stream);
+                                npb, threads, smem, stages, stream);
 }
 
 int block_inv_wide_f32(const void* A, void* X, int batch, int d,

@@ -30,12 +30,20 @@ d = 5, float32, N up to 92,976), beyond which it raises ValueError.
 
 Those kernels hold a node's d x d blocks in one thread's registers and
 are built for d in {3, 5} with b <= 8.  Every other shape up to
-d = 64 and b = 64 goes to the wide variants in csrc/wide.cu, a thread
-block per node with the blocks in shared memory: ``pcr_factor_levels``
-as L + 1 launches (one per level, a node's next inverse formed beside
-its level update; a call is counted once in ``wide_factor_launches``),
-``pcr_downsweep`` with the same launch plan as the narrow kernel
-(``wide_downsweep_launches``).
+d = 64 and b = 64 goes to the wide variants in csrc/wide.cu:
+``pcr_factor_levels`` as L + 1 launches of a thread block per node with
+the blocks in shared memory (one launch per level, a node's next
+inverse formed beside its level update; a call is counted once in
+``wide_factor_launches``), and ``pcr_downsweep`` on a plan of its own
+(``launch_plan('wide_downsweep', ...)``, ``wide_downsweep_launches``):
+a cluster of up to 16 blocks an instance that split its rows, the
+stored levels streamed by bulk copies into a ring of shared-memory
+stages ahead of the sums, each block's new rows of r copied to every
+other block after each level; or, where two units cannot fit beside r,
+zero stages and the narrow kernel's design with A and B read from
+device memory (counted also in ``wide_downsweep_direct_launches``).
+``pcr_downsweep_in_order`` forms the wide kernel's sums in its order in
+PyTorch, so that the card's result can be held to it bitwise.
 
 Unlike the Pallas kernels, neither pads the node axis: outputs keep the
 caller's N.  A tensor on the CPU goes to the plain version
@@ -61,9 +69,12 @@ from .lanes import block_inv_nl, matmul_nl, matvec_nl, transpose_nl
 from .tridiag import _down, _up, num_levels
 
 __all__ = ['pcr_factor_levels', 'pcr_downsweep', 'pcr_factor_levels_plain',
-           'pcr_downsweep_plain', 'launch_plan', 'LaunchPlan',
-           'build_kernels', 'reset_launch_counts', 'kernel_supported',
-           'SUPPORTED_D', 'MAX_B', 'WIDE_MAX_D', 'WIDE_MAX_B']
+           'pcr_downsweep_plain', 'pcr_downsweep_in_order', 'launch_plan',
+           'LaunchPlan', 'WideSweepPlan', 'wide_sweep_smem',
+           'wide_staged_plan', 'wide_direct_plan', 'launch_wide_downsweep',
+           'build_kernels',
+           'reset_launch_counts', 'kernel_supported', 'SUPPORTED_D', 'MAX_B',
+           'WIDE_MAX_D', 'WIDE_MAX_B']
 
 SUPPORTED_D = (3, 5)      # block sizes instantiated in csrc/pcr.cu
 MAX_B = 8                 # widest border the kernels take
@@ -75,20 +86,28 @@ MAX_SWEEP_THREADS = 1024
 FILL_BLOCKS = 256         # about two blocks for each of the H100's 132 SMs
 PORTABLE_CLUSTER = 8      # larger clusters need the non-portable attribute
 MAX_CLUSTER = 16          # the most an H100 schedules
+# clusters of C blocks that an H100 (132 SMs in GPCs of up to 18) holds
+# at once where each block takes most of an SM's shared memory, as the
+# wide downsweep's do (cudaOccupancyMaxActiveClusters on an H100 80GB
+# HBM3): the wide plan keeps a batch within one wave of clusters, which
+# measured faster than more blocks an instance in two waves
+ACTIVE_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
 
 factor_launches = 0
 downsweep_launches = 0
 wide_factor_launches = 0
 wide_downsweep_launches = 0
+wide_downsweep_direct_launches = 0   # of those, the zero-stage branch
 
 
 def reset_launch_counts():
     global factor_launches, downsweep_launches, wide_factor_launches, \
-        wide_downsweep_launches
+        wide_downsweep_launches, wide_downsweep_direct_launches
     factor_launches = 0
     downsweep_launches = 0
     wide_factor_launches = 0
     wide_downsweep_launches = 0
+    wide_downsweep_direct_launches = 0
 
 
 def _narrow(d, b):
@@ -155,6 +174,29 @@ def pcr_downsweep_plain(A, B, r):
     return r
 
 
+def pcr_downsweep_in_order(A, B, r):
+    """``pcr_downsweep_plain`` with each sum formed in the wide kernel's
+    order (csrc/wide.cu): at each level and (row, node), ta = sum over j
+    ascending of A[i, j] * r[j] at node k - s, a product and then an add
+    (no fused multiply-add), tb the same of B at k + s, then
+    (r - ta) - tb; a neighbour outside [0, N) is a zero multiplied in.
+    Elementwise torch operations round each step as the kernel does, so
+    the two agree bitwise on any device.  Tests and chip_smoke.py only."""
+    d = r.shape[-2]
+    s = 1
+    for l in range(A.shape[-4]):
+        rm, rp = _down(r, s), _up(r, s)
+        Al, Bl = A[..., l, :, :, :], B[..., l, :, :, :]
+        ta = Al[..., :, 0, :] * rm[..., None, 0, :]
+        tb = Bl[..., :, 0, :] * rp[..., None, 0, :]
+        for j in range(1, d):
+            ta = ta + Al[..., :, j, :] * rm[..., None, j, :]
+            tb = tb + Bl[..., :, j, :] * rp[..., None, j, :]
+        r = (r - ta) - tb
+        s *= 2
+    return r
+
+
 # ---------------------------------------------------------------------------
 # launch plan
 # ---------------------------------------------------------------------------
@@ -171,6 +213,37 @@ class LaunchPlan(NamedTuple):
                           # scratch (0: the state lies in shared memory)
 
 
+class WideSweepPlan(NamedTuple):
+    cluster: int          # C blocks per instance (a thread block cluster)
+    rows_per_block: int   # stages > 0: block q owns rows [q d // C,
+                          # (q + 1) d // C), at most this many, at every
+                          # node; 0 stages: every row (d)
+    nodes_per_block: int  # stages > 0: N; 0 stages: block q owns nodes
+                          # [q * npb, min((q + 1) * npb, N))
+    stages: int           # units (a row of a level of A and of B) the
+                          # shared-memory ring holds; 0: A and B read from
+                          # device memory
+    threads: int          # threads per block: one per (row, node), each
+                          # looping where the block owns more, and (stages
+                          # > 0) a producer warp
+    smem_bytes: int       # dynamic shared memory per block
+    blocks: int           # the grid: batch * cluster
+
+
+def wide_sweep_smem(d, N, stages, rows, itemsize):
+    """Bytes of shared memory a block of the wide downsweep's staged
+    branch takes (csrc/wide.cu:SweepLayout) for a cluster whose blocks
+    own up to ``rows`` rows: a full and an empty mbarrier for each of
+    max(stages, rows) units in turn, two for the exchange of r, one for
+    its first copy, and a zero; r twice (ping-pong, d rows of N values
+    padded to 16 bytes); ``stages`` units of two slabs of d x N values,
+    each with 16 bytes for its source's alignment."""
+    a16 = lambda n: -(-n // 16) * 16
+    r = a16(d * a16(N * itemsize))
+    slab = a16(d * N * itemsize) + 16
+    return a16(8 * (2 * max(stages, rows) + 4)) + 2 * r + 2 * stages * slab
+
+
 def _state_values(d, b, npb):
     """The factor's state per block: [D | Lb | Ub | F] ping-pong and two
     buffers of inverses (csrc/pcr.cu)."""
@@ -185,10 +258,60 @@ def _split(N, cluster):
     return C, -(-N // C)
 
 
+def _wide_sweep_plan(batch, d, N, dtype):
+    """The wide downsweep's plan (see ``launch_plan``)."""
+    C = 1 << (min(d, MAX_CLUSTER).bit_length() - 1)
+    while C > 1 and batch > ACTIVE_CLUSTERS[C]:
+        C //= 2
+    return wide_staged_plan(batch, d, N, dtype, C) \
+        or wide_direct_plan(batch, d, N, dtype)
+
+
+def wide_staged_plan(batch, d, N, dtype, cluster):
+    """The wide downsweep's staged plan on clusters of ``cluster`` blocks
+    (at most d), or None where two units do not fit beside r."""
+    es = dtype.itemsize
+    L = num_levels(N)
+    rows = -(-d // cluster)
+    least = min(2, L * (d // cluster))     # two units, or all a block has
+    stages = min(2, L) * rows
+    while stages > least \
+            and wide_sweep_smem(d, N, stages, rows, es) > MAX_SMEM:
+        stages -= 1
+    smem = wide_sweep_smem(d, N, stages, rows, es)
+    if smem > MAX_SMEM:
+        return None
+    threads = min(MAX_SWEEP_THREADS - 32, -(-rows * N // 32) * 32) + 32
+    return WideSweepPlan(cluster, rows, N, stages, threads, smem,
+                         batch * cluster)
+
+
+def wide_direct_plan(batch, d, N, dtype):
+    """The wide downsweep's zero-stage plan: the narrow kernel's node
+    split ('downsweep'), A and B read from device memory.  Where the
+    ring fits, ``launch_wide_downsweep`` takes it too (the card's tests
+    and chip_smoke.py hold the two branches to each other and time
+    them)."""
+    p = launch_plan('downsweep', batch, d, 0, N, dtype)
+    return WideSweepPlan(p.cluster, d, p.nodes_per_block, 0, p.threads,
+                         p.smem_bytes, p.blocks)
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(kernel, batch, d, b, N, dtype):
-    """How ``kernel`` ('factor' or 'downsweep') runs ``batch`` instances
-    of (d, b, N) in ``dtype``.
+    """How ``kernel`` ('factor', 'downsweep' or 'wide_downsweep') runs
+    ``batch`` instances of (d, b, N) in ``dtype``.
+
+    'wide_downsweep' (csrc/wide.cu, every d the register kernels do not
+    take) returns a ``WideSweepPlan``: C is the largest power of two up
+    to MAX_CLUSTER and d whose ``batch`` clusters the card holds at once
+    (ACTIVE_CLUSTERS: 16 blocks at up to 7 instances, 8 at up to 15, 2
+    at 32), the blocks split the d rows, and the ring takes up to two
+    levels of a block's units (a row of a level of A and of B each), at
+    least two, within MAX_SMEM beside r's two buffers; a thread per
+    (row, node) up to 992 and the producer's warp.  Where two units do
+    not fit (large N), zero stages, on the narrow kernel's node split
+    ('downsweep' below).  Every other kernel returns a ``LaunchPlan``.
 
     C, the cluster size, starts at the smallest power of two that gives
     at least FILL_BLOCKS blocks (at most PORTABLE_CLUSTER), and shrinks
@@ -203,6 +326,8 @@ def launch_plan(kernel, batch, d, b, N, dtype):
     is an immutable tuple): the main path plans thousands of launches
     of a few shapes.
     """
+    if kernel == 'wide_downsweep':
+        return _wide_sweep_plan(batch, d, N, dtype)
     if kernel not in ('factor', 'downsweep'):
         raise ValueError('launch_plan: unknown kernel {!r}'.format(kernel))
     es = dtype.itemsize
@@ -251,7 +376,7 @@ _WIDE_SIGNATURES = {name + sfx: args for sfx in ('_f32', '_f64')
                     for name, args in (
                         ('pcr_wide_factor', [_VP] * 9 + [_CI] * 5 + [_VP]),
                         ('pcr_wide_downsweep',
-                         [_VP] * 4 + [_CI] * 8 + [_VP]),
+                         [_VP] * 4 + [_CI] * 9 + [_VP]),
                         ('block_inv_wide', [_VP, _VP, _CI, _CI, _VP]))}
 
 
@@ -337,21 +462,46 @@ def pcr_downsweep(A, B, r):
                         ((nbatch, L, d, d, N), (nbatch, L, d, d, N),
                          (nbatch, d, N)))
     _check_dims('pcr_downsweep', d, 0, N)
-    plan = launch_plan('downsweep', nbatch, d, 0, N, r.dtype)
-    out = torch.empty_like(r)
-    narrow = _narrow(d, 0)
-    if narrow:
+    if _narrow(d, 0):
+        out = torch.empty_like(r)
+        plan = launch_plan('downsweep', nbatch, d, 0, N, r.dtype)
         fn = getattr(load('pcr', _SIGNATURES), 'pcr_downsweep_' + suffix)
-    else:
-        fn = getattr(load('wide', _WIDE_SIGNATURES),
-                     'pcr_wide_downsweep_' + suffix)
+        launch('pcr_downsweep', fn,
+               (A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(),
+                nbatch, d, N, L, plan.cluster, plan.nodes_per_block,
+                plan.threads, plan.smem_bytes), r.device)
+        global downsweep_launches
+        downsweep_launches += 1
+        return out
+    return _wide_sweep(A, B, r, launch_plan('wide_downsweep', nbatch, d, 0,
+                                            N, r.dtype), suffix)
+
+
+def launch_wide_downsweep(A, B, r, plan):
+    """csrc/wide.cu's downsweep of CUDA tensors on ``plan`` (a
+    ``WideSweepPlan``); pcr_downsweep launches it on
+    ``launch_plan('wide_downsweep', ...)``.  Counted in
+    wide_downsweep_launches, and a zero-stage plan also in
+    wide_downsweep_direct_launches."""
+    nbatch, L, d, _, N = A.shape
+    suffix = check_cuda('pcr_downsweep', (A, B, r),
+                        ((nbatch, L, d, d, N), (nbatch, L, d, d, N),
+                         (nbatch, d, N)))
+    _check_dims('pcr_downsweep', d, 0, N)
+    return _wide_sweep(A, B, r, plan, suffix)
+
+
+def _wide_sweep(A, B, r, plan, suffix):
+    nbatch, L, d, _, N = A.shape
+    out = torch.empty_like(r)
+    fn = getattr(load('wide', _WIDE_SIGNATURES),
+                 'pcr_wide_downsweep_' + suffix)
     launch('pcr_downsweep', fn,
            (A.data_ptr(), B.data_ptr(), r.data_ptr(), out.data_ptr(), nbatch,
             d, N, L, plan.cluster, plan.nodes_per_block, plan.threads,
-            plan.smem_bytes), r.device)
-    global downsweep_launches, wide_downsweep_launches
-    if narrow:
-        downsweep_launches += 1
-    else:
-        wide_downsweep_launches += 1
+            plan.smem_bytes, plan.stages), r.device)
+    global wide_downsweep_launches, wide_downsweep_direct_launches
+    wide_downsweep_launches += 1
+    if not plan.stages:
+        wide_downsweep_direct_launches += 1
     return out

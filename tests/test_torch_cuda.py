@@ -243,6 +243,102 @@ def test_wide_kernels_match_plain(card, d, b, N, B, dtype):
     assert _rel(out, pk.pcr_downsweep_plain(A, Bm, r)) <= WIDE_TOL[dtype]
 
 
+# the wide downsweep (csrc/wide.cu) against pcr_downsweep_in_order, its
+# sums in the kernel's order: bitwise.  (d, N, B, dtype): nlink-9's block
+# at 1, 8 and 32 lanes (clusters of 16, 8 and 2), the smallest and
+# largest blocks, an odd N, in both dtypes, and the route gate's edge in
+# each, where the plan takes zero stages
+WIDE_SWEEP_CASES = [(d, N, B, dtype) for dtype in (torch.float32,
+                                                   torch.float64)
+                    for d, N, B in ((50, 60, 1), (50, 60, 8), (50, 60, 32),
+                                    (1, 60, 1), (9, 60, 1), (64, 60, 1),
+                                    (50, 37, 1), (9, 7, 3))] \
+    + [(50, 9296, 1, torch.float32), (50, 4640, 1, torch.float64)]
+
+
+def _same_bits(got, want):
+    """The same bits (the sign of a zero included), NaN in the same
+    places."""
+    nan = torch.isnan(got)
+    bits = torch.int64 if got.element_size() == 8 else torch.int32
+    return bool(torch.equal(nan, torch.isnan(want))
+                and torch.equal(torch.where(nan, 0, got).view(bits),
+                                torch.where(nan, 0, want).view(bits)))
+
+
+def _sweep_levels(B, d, N, dtype, device, seed=0):
+    """Stored levels scaled as a diagonally dominant system's, drawn on
+    the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=device,
+                                      dtype=dtype)
+    L = tridiag.num_levels(N)
+    return draw(B, L, d, d, N) / d, draw(B, L, d, d, N) / d, draw(B, d, N)
+
+
+@pytest.mark.parametrize('d, N, B, dtype', WIDE_SWEEP_CASES)
+def test_wide_downsweep_bitwise_in_order(card, d, N, B, dtype):
+    """Both branches of the wide downsweep (the plan's; zero stages on
+    the narrow kernel's node split) give pcr_downsweep_in_order's bits,
+    and agree with the plain version to WIDE_TOL."""
+    assert pk.kernel_supported(d, 0, N, dtype)
+    A, Bm, r = _sweep_levels(B, d, N, dtype, card)
+    plan = pk.launch_plan('wide_downsweep', B, d, 0, N, dtype)
+    assert (plan.stages == 0) == (N > 1000)
+    pk.reset_launch_counts()
+    got = pk.pcr_downsweep(A, Bm, r)
+    zero = pk.launch_wide_downsweep(A, Bm, r,
+                                    pk.wide_direct_plan(B, d, N, dtype))
+    assert (pk.wide_downsweep_launches, pk.downsweep_launches) == (2, 0)
+    assert pk.wide_downsweep_direct_launches == (1 if plan.stages else 2)
+    want = pk.pcr_downsweep_in_order(A, Bm, r)
+    assert _same_bits(got, want) and _same_bits(zero, want)
+    assert _rel(got, pk.pcr_downsweep_plain(A, Bm, r)) <= WIDE_TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_downsweep_every_cluster_size(card, dtype):
+    """The staged branch on clusters of 1 to 16 blocks at nlink-9's
+    block, one and three lanes: the same bits at every size."""
+    for B in (1, 3):
+        A, Bm, r = _sweep_levels(B, 50, 60, dtype, card, seed=B)
+        want = pk.pcr_downsweep_in_order(A, Bm, r)
+        for C in (1, 2, 4, 8, 16):
+            plan = pk.wide_staged_plan(B, 50, 60, dtype, C)
+            assert plan is not None and plan.stages >= 2
+            assert _same_bits(pk.launch_wide_downsweep(A, Bm, r, plan), want)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_downsweep_keeps_nan(card, dtype):
+    """A NaN in one lane's levels, and an infinite multiplier against a
+    neighbour outside [0, N), give NaN where the in-order sums do, and
+    only in their lanes."""
+    A, Bm, r = _sweep_levels(4, 50, 60, dtype, card, seed=5)
+    A[2, 1, 3, 4, 10] = float('nan')
+    Bm[1, 0, 0, 0, 59] = float('inf')
+    got = pk.pcr_downsweep(A, Bm, r)
+    assert _same_bits(got, pk.pcr_downsweep_in_order(A, Bm, r))
+    assert torch.isnan(got[2]).any() and torch.isnan(got[1]).any()
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[3]).all()
+
+
+def test_wide_downsweep_refuses_a_bad_plan(card):
+    """The C entry refuses, before any launch, a staged plan on a
+    cluster wider than the rows, or with too little shared memory; the
+    wrapper raises."""
+    A, Bm, r = _sweep_levels(1, 9, 60, torch.float32, card)
+    good = pk.wide_staged_plan(1, 9, 60, torch.float32, 8)
+    for bad in (good._replace(cluster=16, blocks=16),
+                good._replace(smem_bytes=good.smem_bytes - 16),
+                good._replace(threads=32)):
+        with pytest.raises(RuntimeError, match='cudaError'):
+            pk.launch_wide_downsweep(A, Bm, r, bad)
+    torch.cuda.synchronize()
+    assert _same_bits(pk.launch_wide_downsweep(A, Bm, r, good),
+                      pk.pcr_downsweep_in_order(A, Bm, r))
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('d', [1, 9, 41, 64])
 def test_wide_block_inv_matches_plain(card, d, dtype):

@@ -337,16 +337,35 @@ def test_cpu_calls_are_no_plain_route():
 @pytest.mark.parametrize('dtype', [F32, F64])
 @pytest.mark.parametrize('batch', [1, 8, 32])
 def test_wide_downsweep_plan_at_the_nlink_block(batch, dtype):
-    """The wide downsweep runs nlink-9's d = 50, N = 60 on the narrow
-    kernel's launch plan: every (node, row) pair owned, within 1,024
-    threads a block."""
-    plan = pcr_kernels.launch_plan('downsweep', batch, 50, 0, 60, dtype)
-    assert plan.cluster * plan.nodes_per_block >= 60
-    assert (plan.cluster - 1) * plan.nodes_per_block < 60
-    assert 50 * plan.nodes_per_block <= plan.threads + 31
-    assert plan.threads <= pcr_kernels.MAX_SWEEP_THREADS
-    assert plan.smem_bytes == 2 * 50 * plan.nodes_per_block * dtype.itemsize
-    assert plan.blocks == batch * plan.cluster
+    """The wide downsweep runs nlink-9's d = 50, N = 60 on a plan of its
+    own: clusters that split the 50 rows, as large as the card holds the
+    batch's clusters at once (16 blocks at one lane, 8 at eight, 2 at
+    32), every (row, node) pair owned by one block, a ring of at least
+    two units (a row of a level of A and of B) beside r's two buffers
+    within a block's shared memory, a thread per (row, node) and a
+    producer warp."""
+    plan = pcr_kernels.launch_plan('wide_downsweep', batch, 50, 0, 60, dtype)
+    C = plan.cluster
+    assert C == {1: 16, 8: 8, 32: 2}[batch] and plan.blocks == batch * C
+    rows = [range(q * 50 // C, (q + 1) * 50 // C) for q in range(C)]
+    assert [i for r in rows for i in r] == list(range(50))
+    assert min(map(len, rows)) >= 1
+    assert plan.rows_per_block == max(map(len, rows))
+    assert plan.nodes_per_block == 60
+    assert 2 <= plan.stages <= 2 * plan.rows_per_block
+    assert plan.smem_bytes == pcr_kernels.wide_sweep_smem(
+        50, 60, plan.stages, plan.rows_per_block, dtype.itemsize)
+    assert plan.smem_bytes <= pcr_kernels.MAX_SMEM
+    # a thread per (row, node) up to 992, and the producer's warp
+    assert plan.threads - 32 == min(pcr_kernels.MAX_SWEEP_THREADS - 32,
+                                    -(-plan.rows_per_block * 60 // 32) * 32)
+    # at the route gate's edge r alone fills the shared memory: zero
+    # stages, the nodes split over 16 blocks, A and B read directly
+    edge = pcr_kernels.launch_plan('wide_downsweep', batch, 50, 0, 4640, F64)
+    assert edge.stages == 0 and edge.cluster == pcr_kernels.MAX_CLUSTER
+    assert edge.cluster * edge.nodes_per_block >= 4640
+    assert edge.smem_bytes == 2 * 50 * edge.nodes_per_block * 8 \
+        <= pcr_kernels.MAX_SMEM
 
 
 def test_entry_points_default_to_the_card():
