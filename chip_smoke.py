@@ -34,6 +34,12 @@ Phases, each reported on its own line(s) with its wall time:
    WIDE_SWEEP_SHAPES, the gate's edge and a lane with a NaN, each call
    printed with its plan (cluster, stages, shared memory, threads) and
    beside its zero-stage branch's time;
+3w (identification shapes). the wide factor and downsweep and the
+   border inverse at the blocks of phases 8a and 8b (IDENT_SHAPES: d = 8,
+   b = 4, N = 501 and d = 4, b = 1, N = 5,000) at one lane, float32 and
+   float64, against their plain versions (the downsweep bitwise equal to
+   pcr_downsweep_in_order), timed L2-warm and L2-cold beside their
+   bounds, the downsweep with its plan;
 3ws. wide scan kernels: the scan factor and solve of csrc/scan_wide.cu
    at (d, b) = (50, 41), (9, 0) and (64, the widest border that fits),
    1, 8 and 32 lanes, N = 60, float32 and float64, against their plain
@@ -84,6 +90,12 @@ Phases, each reported on its own line(s) with its wall time:
    process from the same start, every step fingerprinted: whether the
    iterates are bitwise equal and, where not, the first iteration and
    step that differ (printed, not gated);
+7f. pivot edges: the wide inverse and factor (csrc/wide.cuh's pivot
+   step) against their plain versions on inputs at the pivot step's
+   edges (PIVOT_SIZES; ties, zero columns, singular, subnormal and
+   non-finite blocks) and on the factorizations of 7a's first
+   PIVOT_TRIAL_ITERS iterations, each entry's kind (finite, NaN, +inf,
+   -inf) and the finite entries' error compared;
 7c. the same solve with kkt_method='scan' and a float64 factorization
    (the JAX package's own gait-scale configuration) through the wide
    scan kernels: it must converge, no PCR kernel may launch, and one
@@ -94,7 +106,16 @@ Phases, each reported on its own line(s) with its wall time:
    (JAX_GAIT_CPU);
 7b. the cr solve with the card's default factorization (float32 + 6
    float64 refinement rounds) for NLINK_DEFAULT_MAX_ITER iterations of
-   its stall, printed beside the JAX package's stall.
+   its stall, printed beside the JAX package's stall;
+8a. identification: the JAX package's examples/inverted_pendulum_id.py
+   ported (opty_tpu_torch/examples/), 1 link, N = 501, through its
+   builder and ``Problem.solve`` with the card's default options: status
+   0 or 1, the identified gains within IDENT_REL of the JAX package's
+   recorded CPU run (JAX_PENDULUM_ID), the gain error under
+   GAIN_ERROR_LIMIT, the cr kernels at its block launched; counters
+   reset just before and read just after;
+8b. the same for examples/vyasarayani2011.py at N = 5,000
+   (JAX_VYASARAYANI).
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -190,6 +211,31 @@ TOL_WIDE_RESIDUAL = 1e-10
 # block, at d = 9 without a border (the smallest wide block), and at
 # d = 64 with the widest border its shared memory takes in the dtype
 WIDE_SCAN_BLOCKS = ((50, 41), (9, 0), (64, None))
+# phases 8a and 8b: the JAX package's two identification examples at
+# their own default sizes through the port's builders
+# (opty_tpu_torch/examples/) and ``Problem.solve`` with the card's
+# default options; their KKT blocks, (d, b, N): the 1-link pendulum's 4
+# states and 4 unknown gains at N = 501, vyasarayani2011's 2 states and
+# 1 parameter at N = 5,000 (midpoint)
+IDENT_SHAPES = {'8a': (8, 4, 501), '8b': (4, 1, 5000)}
+# the JAX package's runs of the same problems on the CPU with its CPU
+# defaults (kkt_method='scan', float64 factor):
+# JAX_PLATFORMS=cpu python3 scripts/reference_identification.py; the
+# identified values are gated to IDENT_REL relative, iterations printed
+# beside the card's
+JAX_PENDULUM_ID = dict(status=0, iterations=4, obj=0.0026204977797186753,
+                       identified=[-0.9920993137591028, 50.751176002455594,
+                                   -2.680179415285389, 12.602633847686933],
+                       solve_s=20.36)
+JAX_VYASARAYANI = dict(status=0, iterations=5, obj=0.1246571219558233,
+                       identified=[9.99852434191126], solve_s=17.65)
+IDENT_REL = 1e-5
+# the JAX package's own bound on the gain error of this example
+# (tests/test_inverted_pendulum_id.py)
+GAIN_ERROR_LIMIT = 1.0
+# the status an identification solve may end with, and the raw
+# constraint violation it may leave (as NLINK_VIOLATION)
+IDENT_VIOLATION = {0: 1e-6, 1: 1e-5}
 # phase 7: the nlink-9 chain at N = 60 solved with the options of
 # benchmarks/gait_scale.py --small-program, kkt_method='cr'.  7a, with a
 # float64 factorization, must converge, and is compared with the port's
@@ -776,6 +822,239 @@ def check_wide_kernels(pk, bk, name):
                     .format(where, err, aerr, ms, cold, plain_ms, library_ms, bms * 1e3, by))
     del flush
     return rec
+
+
+def check_ident_shapes(pk, bk, name):
+    """Phase 3w at the identification examples' blocks (IDENT_SHAPES,
+    one lane, float32 and float64): the wide factor against its plain
+    version (TOL_WIDE), the wide downsweep bitwise equal to
+    pcr_downsweep_in_order and within TOL_WIDE_SWEEP of its plain
+    version, the border inverse at b (blocks.cu at 4, the wide variant
+    at 1) against its plain version (TOL_BLOCK / TOL_WIDE); each must
+    launch through the kernel the solve takes, timed L2-warm and L2-cold
+    beside its bound and its plain version, the downsweep with its plan.
+    Returns {kernel: [records]}."""
+    import torch
+    from opty_tpu_torch.ops.tridiag import num_levels
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
+    rec = {'pcr_factor_levels_wide': [], 'pcr_downsweep_wide': [],
+           'block_inv': [], 'block_inv_wide': []}
+    for label, (d, b, N) in IDENT_SHAPES.items():
+        L = num_levels(N)
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).split('.')[-1]
+            where = '{} {} B=1 d={} b={} N={}'.format(label, tag, d, b, N)
+            if not pk.kernel_supported(d, b, N, dtype):
+                fail('phase 3w: kernel_supported refuses {}'.format(where))
+            Dm, E, F, r = wide_system(dtype, 1, d, b, N)
+            pk.reset_launch_counts()
+            got = pk.pcr_factor_levels(Dm, E, F)
+            A, Bm = got[0], got[1]
+            s_got = pk.pcr_downsweep(A, Bm, r)
+            torch.cuda.synchronize()
+            if (pk.factor_launches, pk.downsweep_launches,
+                    pk.wide_factor_launches,
+                    pk.wide_downsweep_launches) != (0, 0, 1, 1):
+                fail('phase 3w {}: the wide kernels were not launched'.format(
+                    where))
+            want = pk.pcr_factor_levels_plain(Dm, E, F)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            fabs, ferr = max(e[0] for e in errs), max(e[1] for e in errs)
+            if not all(torch.isfinite(g).all().item() for g in got) \
+                    or ferr > TOL_WIDE[tag]:
+                fail('wide pcr_factor_levels {}: rel err {:.3e} > {:.0e}'
+                     .format(where, ferr, TOL_WIDE[tag]))
+            in_order = pk.pcr_downsweep_in_order(A, Bm, r)
+            sabs, serr = rel_err(s_got, pk.pcr_downsweep_plain(A, Bm, r))
+            if not same_bits(s_got, in_order):
+                fail('wide pcr_downsweep {}: not bitwise equal to '
+                     'pcr_downsweep_in_order'.format(where))
+            if not torch.isfinite(s_got).all().item() \
+                    or serr > TOL_WIDE_SWEEP[tag]:
+                fail('wide pcr_downsweep {}: rel err {:.3e}'.format(where,
+                                                                    serr))
+            plan = pk.launch_plan('wide_downsweep', 1, d, 0, N, dtype)
+            f_bytes, s_bytes = pcr_bytes(Dm.element_size(), 1, N, L, d, b)
+            f_ops, s_ops = flop_counts(d, b, N, L, 1)
+            for kname, fn, plain_fn, aerr, err, nbytes, ops in (
+                    ('pcr_factor_levels_wide',
+                     lambda: pk.pcr_factor_levels(Dm, E, F),
+                     lambda: pk.pcr_factor_levels_plain(Dm, E, F), fabs,
+                     ferr, f_bytes, f_ops),
+                    ('pcr_downsweep_wide', lambda: pk.pcr_downsweep(A, Bm, r),
+                     lambda: pk.pcr_downsweep_plain(A, Bm, r), sabs, serr,
+                     s_bytes, s_ops)):
+                ms = device_ms(fn, reps=20, sleep_cycles=WIDE_SLEEP)[0]
+                cold = cold_ms(fn, flush, reps=10, sleep_cycles=WIDE_SLEEP)
+                plain_ms = timed(plain_fn, 1, 1)
+                bms, by = bound(nbytes, ops, name, tag)
+                extra, note = {}, ''
+                if kname == 'pcr_downsweep_wide':
+                    extra = dict(bitwise_in_order=True, cluster=plan.cluster,
+                                 stages=plan.stages,
+                                 smem_bytes=plan.smem_bytes,
+                                 threads=plan.threads,
+                                 rows_per_block=plan.rows_per_block,
+                                 nodes_per_block=plan.nodes_per_block)
+                    note = ('; plan: cluster {} ({} rows, {} nodes a block), '
+                            '{} stages, {} B of shared memory, {} threads; '
+                            'bitwise equal to pcr_downsweep_in_order'.format(
+                                plan.cluster, plan.rows_per_block,
+                                plan.nodes_per_block, plan.stages,
+                                plan.smem_bytes, plan.threads))
+                rec[kname].append(dict(
+                    example=label, dtype=tag, batch=1, d=d, b=b, nodes=N,
+                    max_abs_err=aerr, max_rel_err=err, ms=ms, cold_ms=cold,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    bytes=nbytes, flops=ops, library_ms=None, **extra))
+                log('kernel {} {}: max_rel_err={:.3e} max_abs_err={:.3e}; ms '
+                    'warm={:.5f} cold={:.5f} plain_ms={:.2f} bound_us={:.3f} '
+                    '({}) cold/bound={:.1f}{}'.format(
+                        kname, where, err, aerr, ms, cold, plain_ms,
+                        bms * 1e3, by, cold / bms, note))
+            # the border inverse as the solve calls it: one b x b matrix
+            rng = np.random.default_rng(b)
+            K = torch.as_tensor(rng.standard_normal((1, b, b))
+                                + 2.0 * b * np.eye(b), dtype=dtype,
+                                device='cuda')
+            bk.reset_launch_counts()
+            got = bk.block_inv(K)
+            torch.cuda.synchronize()
+            kname = 'block_inv_wide' if b not in bk.SUPPORTED_D \
+                else 'block_inv'
+            launched = bk.wide_inv_launches if kname == 'block_inv_wide' \
+                else bk.inv_launches
+            if launched != 1:
+                fail('phase 3w {}: the border inverse did not launch {}'
+                     .format(where, kname))
+            aerr, err = rel_err(got, bk.block_inv_plain(K))
+            tol = (TOL_WIDE if kname == 'block_inv_wide' else TOL_BLOCK)[tag]
+            if not torch.isfinite(got).all().item() or err > tol:
+                fail('{} {}: rel err {:.3e} > {:.0e}'.format(kname, where,
+                                                              err, tol))
+            ms = device_ms(lambda: bk.block_inv(K),
+                           sleep_cycles=WIDE_SLEEP)[0]
+            cold = cold_ms(lambda: bk.block_inv(K), flush, reps=10,
+                           sleep_cycles=WIDE_SLEEP)
+            plain_ms = timed(lambda: bk.block_inv_plain(K), 5, 1)
+            library_ms = timed(lambda: torch.linalg.inv_ex(K)[0], 20)
+            bms, by = bound(2 * b * b * K.element_size(), inv_flops(b), name,
+                            tag)
+            rec[kname].append(dict(
+                example=label, dtype=tag, batch=1, d=b, max_abs_err=aerr,
+                max_rel_err=err, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by))
+            log('kernel {} {} (the border, one {} x {} matrix): '
+                'max_rel_err={:.3e}; ms warm={:.5f} cold={:.5f} '
+                'plain_ms={:.3f} library_ms (torch.linalg.inv_ex)={:.5f} '
+                'bound_us={:.4f} ({})'.format(kname, where, b, b, err, ms,
+                                              cold, plain_ms, library_ms,
+                                              bms * 1e3, by))
+    del flush
+    return rec
+
+
+def ident_solve(counters, label, smi):
+    """Phase 8a or 8b: the example's builder at its default size on the
+    card, ``Problem.solve`` with the card's default options from the
+    builder's guess; counters reset just before and read just after.
+    Fails unless the status is 0 or 1 with the constraints within
+    IDENT_VIOLATION of it, the identified values lie within IDENT_REL
+    relative of the JAX package's recorded run, the kernels of the cr
+    path at the example's blocks launched (the wide factor and
+    downsweep; the border inverse of blocks.cu at b = 4, the wide one at
+    b = 1) and no scan kernel, and (8a) the largest gain error is under
+    GAIN_ERROR_LIMIT.  Returns (launches, record)."""
+    import torch
+    from opty_tpu_torch.ops import block_kernels as bk
+    from opty_tpu_torch.ops import pcr_kernels as pk
+    d, b, N = IDENT_SHAPES[label]
+    for dtype in (torch.float32, torch.float64):
+        if not pk.kernel_supported(d, b, N, dtype):
+            fail('{}: kernel_supported refuses (d, b, N) = ({}, {}, {}) in '
+                 '{}'.format(label, d, b, N, dtype))
+    t0 = time.time()
+    if label == '8a':
+        from opty_tpu_torch.examples import inverted_pendulum_id as ex
+        prob, guess, truth = ex.build_problem(links=1, nodes=N)
+        jax_rec, name = JAX_PENDULUM_ID, 'inverted_pendulum_id'
+    else:
+        from opty_tpu_torch.examples import vyasarayani2011 as ex
+        prob, guess, truth = ex.build_problem(nodes=N)
+        jax_rec, name = JAX_VYASARAYANI, 'vyasarayani2011'
+    build_s = time.time() - t0
+    truth = np.atleast_1d(truth)
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.time()
+    x, info = prob.solve(guess)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(*counters)
+    if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
+        fail('{}: the solution has the wrong shape or is not finite'.format(
+            label))
+    found = x[-truth.size:]
+    worst = float(np.max(np.abs(prob.constraints(x))))
+    want = np.asarray(jax_rec['identified'])
+    rel = float(np.max(np.abs(found - want) / np.abs(want)))
+    per_iter = {k: v / max(info['iterations'], 1)
+                for k, v in launches.items() if v}
+    rec = dict(example=name, status=info['status'],
+               iterations=info['iterations'], obj=info['obj_val'],
+               identified=found.tolist(), truth=truth.tolist(),
+               rel_to_jax=rel, worst_constraint=worst, wall_s=wall,
+               build_s=build_s, launches_per_iteration=per_iter)
+    log('{} {}: (d, b, N) = ({}, {}, {}), default options: status={} '
+        'iterations={} obj={:.12g} identified={} (true {}) wall_s={:.2f} '
+        '(build {:.1f} s) worst constraint={:.3e}; the JAX package on the CPU '
+        '(recorded): status={} iterations={} obj={:.12g} identified={}; '
+        'largest relative difference {:.3e} (limit {:.0e}); launches={}; per '
+        'iteration {} ({})'.format(
+            label, name, d, b, N, info['status'], info['iterations'],
+            info['obj_val'], found.tolist(), truth.tolist(), wall, build_s,
+            worst, jax_rec['status'], jax_rec['iterations'], jax_rec['obj'],
+            jax_rec['identified'], rel, IDENT_REL, json.dumps(launches),
+            json.dumps({k: round(v, 3) for k, v in per_iter.items()}), smi))
+    if info['status'] not in IDENT_VIOLATION:
+        fail('{}: status {}'.format(label, info['status']))
+    if not worst <= IDENT_VIOLATION[info['status']]:
+        fail('{}: the status-{} solution violates its constraints by {:.3e}'
+             .format(label, info['status'], worst))
+    if not rel <= IDENT_REL:
+        fail('{}: the identified values are {:.3e} from the JAX package\'s '
+             '(limit {:.0e})'.format(label, rel, IDENT_REL))
+    if label == '8a':
+        gain_err = float(np.max(np.abs(found - truth)))
+        rec['gain_error'] = gain_err
+        log('8a: max |gain - true gain| = {:.4f} (limit {})'.format(
+            gain_err, GAIN_ERROR_LIMIT))
+        if not gain_err < GAIN_ERROR_LIMIT:
+            fail('8a: the gain error {:.3e} is not under {}'.format(
+                gain_err, GAIN_ERROR_LIMIT))
+    # the same solve again under torch.profiler (the device only): each
+    # hand-written kernel's device time a call in the solve
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prob.solve(guess)
+        torch.cuda.synchronize()
+    rec['in_solve_ms'] = {k: v for k, v in in_solve_times(
+        [e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA]).items()
+        if not k.startswith('launch ')}
+    log('{}: device ms a call in the solve (profiler): {}'.format(
+        label, json.dumps({k: round(v, 5)
+                           for k, v in rec['in_solve_ms'].items()})))
+    border = 'block_inv' if b in bk.SUPPORTED_D else 'block_inv_wide'
+    for kname in ('pcr_factor_levels_wide', 'pcr_downsweep_wide', border):
+        if launches[kname] == 0:
+            fail('{} was not launched in {}'.format(kname, label))
+    for kname in ('scan_factor', 'scan_solve', 'scan_factor_wide',
+                  'scan_solve_wide', 'pcr_factor_levels', 'pcr_downsweep'):
+        if launches[kname]:
+            fail('{} was launched {} times in {}'.format(
+                kname, launches[kname], label))
+    return launches, rec
 
 
 def wide_scan_blocks(dtype):
@@ -1549,57 +1828,75 @@ def pick(records, **where):
                 if all(r[k] == v for k, v in where.items()))
 
 
-def nlink_crossovers(prob, guess, ks, cpu_prob=None, kkt_method='cr'):
-    """Card against CPU one iteration at a time from a shared state: the
-    card's ``prob`` (phase 7's options, ``kkt_method``, float64 factor)
-    runs to each iteration count k in ``ks`` in one chunk from the last;
-    there its state goes to the CPU (``interop.state_from_numpy``), both
-    take one iteration from it, and the next iterates are compared.
-    Returns
-    {k: {'x', 'y', 'zL', 'zU': max |difference| / max |card's|,
-    'mono_equal', 'mu'}}."""
+def solve_with_crossovers(prob, guess, factor_dtype, kkt_method, ks,
+                          cpu_prob, **options):
+    """``nlink_solve`` through ``Problem.solve`` in chunks that end at the
+    iteration counts ``ks`` (the first chunk one iteration; each chunk
+    runs the solve's own states, bitwise those of a run in one chunk),
+    and at each k the CPU (``cpu_prob``, the plain versions) takes one
+    iteration from the card's state as the card takes its next
+    (``interop.state_from_numpy``), and the next iterates are compared:
+    {'x', 'y', 'zL', 'zU': max |difference| / max |card's|, 'mono_equal',
+    'mu'}.  The crossovers' time is taken out of the record's wall
+    (``crossover_s``).  Returns (x, record, {k: comparison})."""
     import torch
     from opty_tpu_torch import interop
-    if cpu_prob is None:
-        cpu_prob, _ = nlink_problem('cpu')
-
-    def solver(p, chunk):
-        """(run_cold, run_resume) of ``p`` running ``chunk`` iterations a
-        call (the chunk is fixed when the solver is built)."""
-        p.set_solver_options(kkt_method=kkt_method,
-                             factor_dtype=torch.float64, chunk_iters=chunk,
-                             **NLINK_OPTIONS)
-        return p._build_solver()[1:]
-
-    card_cold, card_step = solver(prob, 1)
-    cpu_step = solver(cpu_prob, 1)[1]
-    free = torch.as_tensor(guess, device='cuda')[None]
+    cpu_prob.set_solver_options(kkt_method=kkt_method,
+                                factor_dtype=torch.float64, chunk_iters=1,
+                                **NLINK_OPTIONS)
+    cpu_step = cpu_prob._build_solver()[2]
     cpu_free = torch.as_tensor(guess)[None]
     rel = lambda a, b: float(np.max(np.abs(a - b))
                              / max(np.max(np.abs(b)), 1e-300))
-    out = {}
-    _, state = card_cold(free)
-    for k in sorted(ks):
-        it = int(state.it[0])
-        if it < k and not bool(state.done.all()):
-            _, state = solver(prob, k - it)[1](free, state)
-        if bool(state.done.all()) or int(state.it[0]) != k:
-            break
-        _, nxt = card_step(free, state)
-        shared = interop.state_from_numpy(
-            {f: v.detach().cpu().numpy()
-             for f, v in state._asdict().items()}, 'cpu')
-        _, got = cpu_step(cpu_free, shared)
-        out[k] = dict(
-            mu=float(nxt.mu[0]),
-            mono_equal=bool(nxt.mono[0].item() == got.mono[0].item()),
-            **{f: rel(getattr(got, f)[0].numpy(),
-                      getattr(nxt, f)[0].cpu().numpy())
-               for f in ('x', 'y', 'zL', 'zU')})
-        state = nxt
-    for p in (prob, cpu_prob):
-        p.set_solver_options(chunk_iters=None)
-    return out
+    out, spent, resumes = {}, [0.0], {}
+    last = dict(NLINK_OPTIONS, **options)['max_iter']
+
+    def resume(chunk):
+        """The card solver's run_resume running ``chunk`` iterations a
+        call (the chunk is fixed when the solver is built)."""
+        if chunk not in resumes:
+            saved, prob._chunk_iters = prob._chunk_iters, chunk
+            try:
+                resumes[chunk] = prob._build_solver()[2]
+            finally:
+                prob._chunk_iters = saved
+        return resumes[chunk]
+
+    drain = prob._drain
+
+    def drain_with_crossovers(run_resume, free, res, state):
+        def step(free_, st):
+            k = int(st.it[0])
+            if k not in ks:
+                later = [j for j in ks if j > k]
+                return resume(min(later) - k if later else last)(free_, st)
+            res_, nxt = resume(1)(free_, st)
+            t0 = time.time()
+            shared = interop.state_from_numpy(
+                {f: v.detach().cpu().numpy()
+                 for f, v in st._asdict().items()}, 'cpu')
+            _, got = cpu_step(cpu_free, shared)
+            out[k] = dict(
+                mu=float(nxt.mu[0]),
+                mono_equal=bool(nxt.mono[0].item() == got.mono[0].item()),
+                **{f: rel(getattr(got, f)[0].numpy(),
+                          getattr(nxt, f)[0].cpu().numpy())
+                   for f in ('x', 'y', 'zL', 'zU')})
+            spent[0] += time.time() - t0
+            return res_, nxt
+        return drain(step, free, res, state)
+
+    prob._drain = drain_with_crossovers
+    try:
+        x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method,
+                             chunk_iters=1, **options)
+    finally:
+        del prob._drain
+        for p in (prob, cpu_prob):
+            p.set_solver_options(chunk_iters=None)
+    rec['wall_s'] -= spent[0]
+    rec['crossover_s'] = spent[0]
+    return x, rec, out
 
 
 def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
@@ -1614,13 +1911,23 @@ def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
     NLINK_VIOLATION of its status).  With a ``reference`` (the
     CPU's record) it prints whether the two agree in status, iterations
     (within NLINK_ITER_SLACK) and objective (NLINK_OBJ_TOL).  With
-    ``crossovers`` (iteration counts) it fails unless the solve converged
-    and one iteration from the card's state at each count, card against
-    CPU, agrees to NLINK_STEP_TOL.  Returns (launches, record)."""
+    ``crossovers`` (iteration counts) the solve runs in chunks that end
+    there and takes them on the way (``solve_with_crossovers``), and it
+    fails unless the solve converged and one iteration from the card's
+    state at each count, card against CPU, agrees to NLINK_STEP_TOL.
+    Returns (launches, record)."""
     import torch
     torch.cuda.synchronize()
     reset_counts(*counters)
-    x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method, **options)
+    if crossovers is None:
+        x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method,
+                             **options)
+    else:
+        if cpu_prob is None:
+            cpu_prob, _ = nlink_problem('cpu')
+        x, rec, steps = solve_with_crossovers(
+            prob, guess, factor_dtype, kkt_method, crossovers, cpu_prob,
+            **options)
     launches = launch_counts(*counters)
     if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
         fail('{}: the solution has the wrong shape or is not finite'.format(
@@ -1667,8 +1974,6 @@ def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
     if crossovers is not None:
         if rec['status'] not in (0, 1):
             fail('{}: the float64 solve did not converge'.format(label))
-        steps = nlink_crossovers(prob, guess, crossovers, cpu_prob,
-                                 kkt_method)
         missing = [k for k in crossovers
                    if k < rec['iterations'] and k not in steps]
         if missing:
@@ -1729,10 +2034,14 @@ def fingerprint(obj, out):
     lists, dicts, named tuples), the sum of its bit patterns in 16-bit
     words, reduced on its device (exact in 64 bits below 2^47 words):
     equal tensors give equal sums, and a change in any bit almost surely
-    changes it."""
+    changes it.  Every NaN counts as one pattern: its payload, which
+    differs between ways of making a NaN, says nothing of the solve."""
     import torch
     if isinstance(obj, torch.Tensor):
-        t = obj.detach().contiguous().view(-1)
+        t = obj.detach()
+        if t.is_floating_point():
+            t = torch.where(torch.isnan(t), float('nan'), t)
+        t = t.contiguous().view(-1)
         if t.element_size() == 1:
             t = t.view(torch.uint8).to(torch.int64)
         elif t.numel():
@@ -1746,16 +2055,14 @@ def fingerprint(obj, out):
             fingerprint(v, out)
 
 
-def reproducibility(prob, guess):
-    """Phase 7d: phase 7a's solve (cr, float64 factor) for REPRO_ITERS
-    iterations, twice in this process from the same start.  Every step
-    on the way is fingerprinted in call order (``fingerprint`` of the
-    outputs of the solver's steps module, of the NLP callbacks, and of
-    the PCR and border-inverse entry points, REPRO_HOOKS), each tagged
-    with its iteration (a call of steps.monotone_barrier_update opens
-    one).  Prints whether the iterates are bitwise equal and, where not,
-    the first iteration and the first step whose outputs differ.  Not a
-    gate.  Returns the record."""
+def fingerprinted_solve(prob, guess, max_iter=REPRO_ITERS):
+    """Phase 7a's solve (cr, float64 factor) for ``max_iter`` iterations
+    with every step on the way fingerprinted in call order
+    (``fingerprint`` of the outputs of the solver's steps module, of the
+    NLP callbacks, and of the PCR and border-inverse entry points,
+    REPRO_HOOKS), each tagged with its iteration (a call of
+    steps.monotone_barrier_update opens one).  Returns (x, record,
+    [(iteration, step, fingerprints)])."""
     import importlib
     import inspect
     import torch
@@ -1798,33 +2105,44 @@ def reproducibility(prob, guess):
             if callable(getattr(fns, f))}), scale
     saved.append((problem_mod, 'make_collocation_nlp_functions', make))
     problem_mod.make_collocation_nlp_functions = make_hooked
-    runs = []
     try:
-        for _ in range(2):
-            del calls[:], sums[:]
-            where['it'] = 0
-            x, _ = nlink_solve(prob, guess, torch.float64,
-                               max_iter=REPRO_ITERS)
-            values = torch.stack(sums).cpu().tolist() if sums else []
-            runs.append((x, [(k, name, values[i:j])
-                             for k, name, i, j in calls]))
+        x, rec = nlink_solve(prob, guess, torch.float64, max_iter=max_iter)
+        values = torch.stack(sums).cpu().tolist() if sums else []
     finally:
         for mod, attr, fn in reversed(saved):
             setattr(mod, attr, fn)
-    (x1, l1), (x2, l2) = runs
+    return x, rec, [(k, name, values[i:j]) for k, name, i, j in calls]
+
+
+def first_difference(l1, l2):
+    """(iteration, step, call index) of the first hooked call whose
+    fingerprints differ between two ``fingerprinted_solve`` logs, or
+    None where every call is equal."""
     first = next((a for a, b in zip(l1, l2) if a != b), None)
     if first is None and len(l1) != len(l2):
-        first = (None, 'the runs made {} and {} hooked calls'.format(
-            len(l1), len(l2)), None)
-    index = None if first is None else l1.index(first) \
-        if first in l1 else min(len(l1), len(l2))
+        return (None, 'the runs made {} and {} hooked calls'.format(
+            len(l1), len(l2)), min(len(l1), len(l2)))
+    if first is None:
+        return None
+    return first[0], first[1], l1.index(first)
+
+
+def reproducibility(prob, guess):
+    """Phase 7d: ``fingerprinted_solve`` for REPRO_ITERS iterations,
+    twice in this process from the same start.  Prints whether the
+    iterates are bitwise equal and, where not, the first iteration and
+    the first step whose outputs differ.  Not a gate.  Returns the
+    record."""
+    (x1, _, l1), (x2, _, l2) = (fingerprinted_solve(prob, guess)
+                                for _ in range(2))
+    first = first_difference(l1, l2)
     equal = first is None and np.array_equal(x1.view(np.int64),
                                               x2.view(np.int64))
     rec = dict(iterations=REPRO_ITERS, bitwise_equal=bool(equal),
                steps_logged=len(l1),
                first_iteration=None if first is None else first[0],
                first_step=None if first is None else first[1],
-               first_call=index)
+               first_call=None if first is None else first[2])
     log('7d reproducibility: nlink-{} N={} cr float64, {} iterations twice '
         'from the same start in one process, {} hooked steps a run: the '
         'iterates are {}'.format(
@@ -1832,13 +2150,327 @@ def reproducibility(prob, guess):
             'bitwise equal' if equal else
             'NOT bitwise equal; the first step whose outputs differ: {} in '
             'iteration {} (call {} of the run)'.format(
-                rec['first_step'], rec['first_iteration'], index)
+                rec['first_step'], rec['first_iteration'], rec['first_call'])
             if first is not None else
             'NOT bitwise equal in the solution, every hooked step equal'))
     return rec
 
 
-def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
+# phase 7f: the pivot step's edge cases (csrc/wide.cuh:pivot_row, lu_panel,
+# divide).  Matrices of these sizes (1, a panel's 8, one past it, the
+# border and the block of nlink-9, the largest) in the classes of
+# ``pivot_edge_blocks``; the wide inverse against block_inv_plain, the
+# wide factor against pcr_factor_levels_plain, each entry's kind
+# (finite, NaN, +inf, -inf) compared and the finite entries within
+# TOL_WIDE of the largest finite reference entry
+PIVOT_SIZES = (1, 4, 8, 9, 41, 50, 64)
+# the classes of well-conditioned, nonsingular blocks, whose inverses
+# are held to TOL_WIDE (the others' finite entries follow the round-off
+# of near-cancellations and are printed)
+PIVOT_WELL_POSED = ('first-column ties', 'upper triangular',
+                    'zero below the first pivot', 'subnormal beside normal')
+PIVOT_BATCH = 16
+# the first iterations of 7a whose factorizations phase 7f replays
+PIVOT_TRIAL_ITERS = 40
+PIVOT_TRIALS_KEPT = 6
+
+
+def pivot_edge_blocks(n, dtype, device='cuda'):
+    """{class: (PIVOT_BATCH, n, n) tensor} of inputs that the pivot
+    step's order keys, renamed rows and fast division meet at their
+    edges: exact ties of |entry| in every column (small integers, either
+    sign; also in the first column of a random matrix, with opposite
+    signs), a zero column below the diagonal (upper triangular; the
+    first column zero below its head), exactly singular blocks (a row
+    the sum of two others; a zero column; all zeros), subnormal entries
+    (a whole matrix of them; some off the diagonal of a well-conditioned
+    one) and NaN, +inf and
+    -inf entries, at the first pivot and elsewhere."""
+    import torch
+    rng = np.random.default_rng(1000 + n)
+    B = PIVOT_BATCH
+    tiny = 1e-310 if dtype == torch.float64 else 1e-41
+    normal = rng.standard_normal((B, n, n)) + n * np.eye(n)
+    ints = rng.integers(-3, 4, (B, n, n)).astype(float)
+    out = {'integer ties': ints,
+           'first-column ties': normal.copy(),
+           'upper triangular': np.triu(rng.standard_normal((B, n, n)))
+           + n * np.eye(n),
+           'zero below the first pivot': normal.copy(),
+           'singular: row sum': ints.copy(),
+           'singular: zero column': normal.copy(),
+           'singular: zeros': np.zeros((B, n, n)),
+           'subnormal': tiny * rng.standard_normal((B, n, n)),
+           'subnormal beside normal': normal.copy(),
+           'non-finite': normal.copy()}
+    out['first-column ties'][:, :, 0] = rng.choice([-2.0, 2.0], (B, n))
+    out['zero below the first pivot'][:, 1:, 0] = 0.0
+    if n >= 3:
+        out['singular: row sum'][:, -1] = ints[:, 0] + ints[:, 1]
+    else:
+        out['singular: row sum'][:, -1] = ints[:, 0]
+    out['singular: zero column'][:, :, rng.integers(0, n)] = 0.0
+    mask = (rng.random((B, n, n)) < 0.3) & ~np.eye(n, dtype=bool)
+    out['subnormal beside normal'][mask] = tiny * rng.standard_normal(
+        int(mask.sum()))
+    for i in range(B):
+        val = (np.nan, np.inf, -np.inf)[i % 3]
+        r, c = (0, 0) if i < 3 else tuple(rng.integers(0, n, 2))
+        out['non-finite'][i, r, c] = val
+    return {k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in out.items()}
+
+
+def entry_kinds(x):
+    """Each entry's kind: 0 finite, 1 NaN, 2 +inf, 3 -inf."""
+    import torch
+    return torch.where(torch.isnan(x), 1, torch.where(
+        x == float('inf'), 2, torch.where(x == -float('inf'), 3, 0)))
+
+
+def kinds_and_error(got, want):
+    """(entries whose kind differs, matrices (leading index) where one
+    side is all finite and the other not, max |got - want| over the
+    entries finite in both / max |finite want|)."""
+    import torch
+    kg, kw = entry_kinds(got), entry_kinds(want)
+    lead = lambda k: (k != 0).reshape(k.shape[0], -1).any(dim=1)
+    both = (kg == 0) & (kw == 0)
+    scale = want.double().abs()[kw == 0].max().item() if (kw == 0).any() \
+        else 1.0
+    err = (got.double() - want.double()).abs()[both].max().item() \
+        if both.any() else 0.0
+    return (int((kg != kw).sum()), int((lead(kg) != lead(kw)).sum()),
+            err / max(scale, 1e-300))
+
+
+def wide_inverse(A):
+    """csrc/wide.cu's inverse of CUDA matrices A (..., n, n) at any n
+    (block_inv takes it only where blocks.cu is not built); not counted:
+    phase 7f's yardstick calls."""
+    import torch
+    from opty_tpu_torch.ops.cuda_build import check_cuda, launch, load
+    from opty_tpu_torch.ops.pcr_kernels import _WIDE_SIGNATURES
+    n = A.shape[-1]
+    suffix = check_cuda('block_inv', (A,), (A.shape,))
+    X = torch.empty_like(A)
+    fn = getattr(load('wide', _WIDE_SIGNATURES), 'block_inv_wide_' + suffix)
+    launch('block_inv', fn, (A.data_ptr(), X.data_ptr(), A.numel() // (n * n),
+                             n), A.device)
+    return X
+
+
+def pivot_edge_inverses(bk, inverse=wide_inverse):
+    """The wide inverse (``inverse``) against block_inv_plain on
+    ``pivot_edge_blocks`` at PIVOT_SIZES in float32 and float64.
+    Returns [record] with the outputs under 'out' (kept for other
+    builds to be held to)."""
+    import torch
+    recs = []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        for n in PIVOT_SIZES:
+            for cls, A in pivot_edge_blocks(n, dtype).items():
+                got = inverse(A)
+                want = bk.block_inv_plain(A)
+                kinds, flags, err = kinds_and_error(got, want)
+                recs.append(dict(dtype=tag, n=n, cls=cls, kinds=kinds,
+                                 flags=flags, err=err,
+                                 nonfinite=int((entry_kinds(got) != 0).sum()),
+                                 out=got))
+    return recs
+
+
+def pivot_edge_factors(pk, factor=None):
+    """The wide PCR factor (``factor``, default pk.pcr_factor_levels)
+    against pcr_factor_levels_plain on systems at d = 8 and 50 whose
+    diagonal blocks are ``pivot_edge_blocks`` (N = PIVOT_BATCH nodes,
+    the border 4 / 41, small coupling blocks), so that the level-0
+    inverses meet every class.  Returns [record] as
+    ``pivot_edge_inverses``."""
+    import torch
+    factor = factor or pk.pcr_factor_levels
+    recs = []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        for d, b in ((8, 4), (50, 41)):
+            rng = np.random.default_rng(d)
+            N = PIVOT_BATCH
+            E = torch.as_tensor(0.01 * rng.standard_normal((1, d, d, N)),
+                                dtype=dtype, device='cuda')
+            E[..., 0] = 0.0
+            F = torch.as_tensor(0.1 * rng.standard_normal((1, d, b, N)),
+                                dtype=dtype, device='cuda')
+            for cls, blocks in pivot_edge_blocks(d, dtype).items():
+                Dm = blocks.permute(1, 2, 0)[None].contiguous()
+                got = factor(Dm, E, F)
+                want = pk.pcr_factor_levels_plain(Dm, E, F)
+                res = [kinds_and_error(g, w) for g, w in zip(got, want)]
+                recs.append(dict(
+                    dtype=tag, n=d, cls='factor, D blocks: ' + cls,
+                    kinds=sum(r[0] for r in res), flags=max(r[1] for r in res),
+                    err=max(r[2] for r in res),
+                    nonfinite=sum(int((entry_kinds(g) != 0).sum())
+                                  for g in got), out=got))
+    return recs
+
+
+def capture_trials(prob, guess, iters=PIVOT_TRIAL_ITERS,
+                   keep=PIVOT_TRIALS_KEPT):
+    """Phase 7a's solve for ``iters`` iterations with its factorizations'
+    inputs kept: the first ``keep`` calls of the PCR factor and of the
+    border inverse whose outputs hold a non-finite value (the
+    regularization ladder's singular trials), else none, and beside them
+    the first call of each.  Returns {'factor': [(D, E, F)],
+    'border': [A]}."""
+    import torch
+    from opty_tpu_torch.ops import block_kernels as bk
+    from opty_tpu_torch.ops import pcr_kernels as pk
+    kept = {'factor': [], 'border': []}
+    seen = {'factor': 0, 'border': 0}
+    fac0, inv0 = pk.pcr_factor_levels, bk.block_inv
+
+    def keep_if(kind, args, out):
+        outs = out if isinstance(out, tuple) else (out,)
+        bad = not all(torch.isfinite(o).all().item() for o in outs)
+        seen[kind] += 1
+        if (bad or seen[kind] == 1) and len(kept[kind]) < keep:
+            kept[kind].append(tuple(a.clone() for a in args))
+
+    def factor(D, E, F):
+        out = fac0(D, E, F)
+        keep_if('factor', (D, E, F), out)
+        return out
+
+    def border(A, out=None):
+        res = inv0(A, out)
+        keep_if('border', (A,), res)
+        return res
+
+    pk.pcr_factor_levels = factor
+    bk.block_inv = border         # ops/tridiag.py imports it at the call
+    try:
+        nlink_solve(prob, guess, torch.float64, max_iter=iters)
+    finally:
+        pk.pcr_factor_levels = fac0
+        bk.block_inv = inv0
+    return kept
+
+
+def near_midpoint_divisors(dtype):
+    """Divisors whose reciprocals lie next to a midpoint of two
+    neighbouring values: +-2^e (1 - k u) for odd k and u the unit
+    roundoff (2^-53, 2^-24), 1 / (1 - u) = 1 + u + u^2 + ... rounding up
+    by a hair; then random ones of every magnitude."""
+    import torch
+    u = 2.0 ** (-53 if dtype == torch.float64 else -24)
+    ks = np.arange(1, 64, 2)
+    base = 1.0 - ks * u
+    vals = np.concatenate([s * 2.0 ** e * base for e in (-7, -1, 0, 3, 20)
+                           for s in (1.0, -1.0)])
+    rng = np.random.default_rng(53)
+    rand = rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096)
+    if dtype == torch.float32:
+        rand = rng.standard_normal(4096) * 10.0 ** rng.integers(-15, 15, 4096)
+    return torch.as_tensor(np.concatenate([vals, rand]), dtype=dtype)
+
+
+def division_check(gate=True):
+    """Phase 7f's gate on the inverse's divisions (csrc/wide.cuh:divide):
+    the wide inverse of 1 x 1 blocks [b] and of diagonal 2 x 2 blocks
+    equal to block_inv_plain's on the CPU (IEEE division, correctly
+    rounded), value for value, for ``near_midpoint_divisors`` in float32
+    and float64.  An inverse whose divisions are one unit in the last
+    place off on such quotients (1 / (1 - 2^-53)) fails (where
+    ``gate``).  Returns {dtype: entries that differ}."""
+    import torch
+    from opty_tpu_torch.ops import block_kernels as bk
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        b = near_midpoint_divisors(dtype)
+        one = b[:, None, None]
+        two = torch.zeros((b.numel() // 2, 2, 2), dtype=dtype)
+        two[:, 0, 0], two[:, 1, 1] = b[0::2][:two.shape[0]], \
+            b[1::2][:two.shape[0]]
+        bad = 0
+        for A in (one, two):
+            got = wide_inverse(A.cuda()).cpu()
+            want = bk.block_inv_plain(A)
+            bad += int((got != want).sum())
+        out[tag] = bad
+        log('7f divisions {}: the wide inverse of {} 1 x 1 and {} diagonal '
+            '2 x 2 blocks (divisors next to a midpoint, then random) against '
+            'block_inv_plain on the CPU: {} entries differ'.format(
+                tag, b.numel(), two.shape[0], bad))
+        if bad and gate:
+            fail('7f: the wide inverse divides other than IEEE division in '
+                 '{} ({} entries)'.format(tag, bad))
+    return out
+
+
+def pivot_edges(pk, bk, prob, guess):
+    """Phase 7f: the pivot step's edge cases.  The wide inverse and the
+    wide factor against their plain versions on ``pivot_edge_blocks``
+    (``pivot_edge_inverses``, ``pivot_edge_factors``), and the
+    factorizations that phase 7a's first PIVOT_TRIAL_ITERS iterations
+    make (``capture_trials``: its singular trials where the ladder makes
+    any) replayed through the kernels and the plain versions.  Each
+    comparison is printed: the entries whose kind (finite, NaN, +inf,
+    -inf) differs, the matrices finite on one side only, and the error
+    of the finite entries.  Returns the records (without outputs)."""
+    import torch
+    division_check()
+    recs = pivot_edge_inverses(bk) + pivot_edge_factors(pk)
+    trials = capture_trials(prob, guess)
+    for kind, inputs in trials.items():
+        for i, args in enumerate(inputs):
+            if kind == 'factor':
+                got = pk.pcr_factor_levels(*args)
+                want = pk.pcr_factor_levels_plain(*args)
+            else:
+                got, want = (bk.block_inv(*args),), (bk.block_inv_plain(*args),)
+            res = [kinds_and_error(g, w) for g, w in zip(got, want)]
+            recs.append(dict(dtype=str(args[0].dtype).split('.')[-1],
+                             n=args[0].shape[-2 if kind == 'factor' else -1],
+                             cls='7a {} call {}'.format(kind, i),
+                             kinds=sum(r[0] for r in res),
+                             flags=max(r[1] for r in res),
+                             err=max(r[2] for r in res),
+                             nonfinite=sum(int((entry_kinds(g) != 0).sum())
+                                           for g in got)))
+    torch.cuda.synchronize()
+    bad = []
+    for r in recs:
+        r.pop('out', None)
+        log('7f {} n={} {}: {} entries of another kind than the plain '
+            'version\'s, {} matrices finite on one side only, finite '
+            'entries within {:.3e} of the largest, {} non-finite entries'
+            .format(r['dtype'], r['n'], r['cls'], r['kinds'], r['flags'],
+                    r['err'], r['nonfinite']))
+        # gates: a block with a non-finite entry inverts to NaN in every
+        # entry on both sides, and factors to non-finite outputs on both;
+        # the well-posed classes agree in kind everywhere and to TOL_WIDE;
+        # 7a's factorizations agree in kind and finiteness.  Exactly
+        # singular blocks are printed only: whether a pivot comes out
+        # exactly zero follows the order of the sums.
+        cls = r['cls'].split(': ', 1)[-1]
+        if cls == 'non-finite' and (r['flags'] or (
+                r['kinds'] and not r['cls'].startswith('factor'))):
+            bad.append(r)
+        elif cls in PIVOT_WELL_POSED and (
+                r['flags'] or r['kinds'] or r['err'] > TOL_WIDE[r['dtype']]):
+            bad.append(r)
+        elif r['cls'].startswith('7a') and (r['flags'] or r['kinds']):
+            bad.append(r)
+    if bad:
+        fail('7f: the wide inverse or factor departs from its plain version '
+             'on {}'.format([(r['dtype'], r['n'], r['cls']) for r in bad]))
+    return recs
+
+
+def kernel_records(pcr, scan, blocks, launches, in_solve, iterations,
+                   ident_shapes):
     """The JSON entries, each at the shape and dtype its path runs it:
     the PCR kernels at the main path's B = 32, N = 501 in float32 (the
     cr queue's launches; ``ms`` L2-warm, ``cold_ms`` L2-cold, float64
@@ -1851,7 +2483,10 @@ def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
     7a's beside); the wide scan kernels at nlink-9's block at one lane in
     float64 (7c's launches, and per iteration over 7c's
     ``iterations``).  Every measured shape is beside in ``shapes``;
-    ``in_solve_ms`` is the profile's time per launch."""
+    ``in_solve_ms`` is the profile's time per launch.  Every entry also
+    holds its launches in the identification solves (8a, 8b), in all
+    and per iteration, and the kernels those solves run hold their
+    records at the examples' blocks in ``identification_shapes``."""
     out = []
     for kname, source, replaces, _ in KERNELS:
         entry = dict(name=kname, route='cuda', source=source,
@@ -1859,7 +2494,15 @@ def kernel_records(pcr, scan, blocks, launches, in_solve, iterations):
                      launches_default_path=launches['default'][kname],
                      launches_in_restoration={
                          m: launches['rest_' + m][kname]
-                         for m in ('cr', 'scan')})
+                         for m in ('cr', 'scan')},
+                     launches_identification={
+                         label: dict(launches=launches[label][kname],
+                                     per_iteration=launches[label][kname]
+                                     / max(iterations[label], 1),
+                                     in_solve_ms=in_solve[label].get(kname))
+                         for label in IDENT_SHAPES})
+        if ident_shapes.get(kname):
+            entry['identification_shapes'] = ident_shapes[kname]
         if kname in WIDE_SCAN_KERNELS:
             shapes = blocks[kname]
             main = pick(shapes, dtype='float64', batch=1, d=WIDE_D, b=WIDE_B)
@@ -1993,6 +2636,8 @@ def run(torch, counters, pk, bk, sk, children):
     wide = phase('3w wide kernels', check_wide_kernels, pk, bk, name)
     wide.update(phase('3ws wide scan kernels', check_wide_scan_kernels, sk,
                       name))
+    ident_shapes = phase('3w identification shapes', check_ident_shapes, pk,
+                         bk, name)
 
     # 4. small reference solves, card against CPU
     phase('4 reference cr', reference_solve, 'cr', counters)
@@ -2092,6 +2737,7 @@ def run(torch, counters, pk, bk, sk, children):
             nlink_f64['pcr_downsweep_wide'], rec_f64['iterations'], per_iter,
             sweep_ms * 1e3, sweep_calls, per_iter * sweep_ms, smi))
     phase('7d reproducibility', reproducibility, prob, guess)
+    phase('7f pivot edges', pivot_edges, pk, bk, prob, guess)
     nlink_scan, rec_scan = phase(
         '7c nlink scan float64', nlink_path, counters, 'nlink scan float64',
         prob, guess, torch.float64, kkt_method='scan',
@@ -2127,13 +2773,23 @@ def run(torch, counters, pk, bk, sk, children):
             rec_def['iterations'], rec_def['wall_s'],
             json.dumps(JAX_GAIT_CPU)))
 
+
+    # 8a, 8b. the JAX package's identification examples at their sizes
+    ident = {label: phase(label + ' identification', ident_solve, counters,
+                          label, smi) for label in IDENT_SHAPES}
+
     blocks.update(wide)
     print(json.dumps({'kernels': kernel_records(
         pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches,
                             'default': def_launches, 'rest_cr': rest_cr,
                             'rest_scan': rest_scan, 'nlink': nlink_def,
-                            'nlink_f64': nlink_f64, 'nlink_scan': nlink_scan},
-        in_solve, {'nlink_scan': rec_scan['iterations']})}), flush=True)
+                            'nlink_f64': nlink_f64, 'nlink_scan': nlink_scan,
+                            '8a': ident['8a'][0], '8b': ident['8b'][0]},
+        dict(in_solve, **{label: ident[label][1]['in_solve_ms']
+                          for label in IDENT_SHAPES}),
+        {'nlink_scan': rec_scan['iterations'],
+         '8a': ident['8a'][1]['iterations'],
+         '8b': ident['8b'][1]['iterations']}, ident_shapes)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': count}}), flush=True)

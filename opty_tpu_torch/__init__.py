@@ -17,5 +17,7 @@ from . import config  # noqa: F401  (TF32 off; must come first)
 from .version import __version__  # noqa: F401
 from .problem import Problem  # noqa: F401
 from .transcribe.collocator import ConstraintCollocator  # noqa: F401
-from .utils import create_objective_function, parse_free  # noqa: F401
+from .utils import (  # noqa: F401
+    create_objective_function, parse_free, state_derivatives, f_minus_ma,
+    sum_of_sines, controllable, substitute_matrix, sort_sympy)
 from .nlp import IPMOptions, solve_ipm  # noqa: F401

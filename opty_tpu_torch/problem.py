@@ -2,8 +2,12 @@
 
 The counterpart of opty_tpu/problem.py: the same constructor, free
 vector and constraint ordering, bound arrays, ``solve`` result
-contract, ``solve_batch`` and the lane-refilling ``solve_queue``, plus
-``device`` (``None`` means the card; see config.resolve_device).
+contract (with ``respect_bounds``), ``solve_batch`` and the
+lane-refilling ``solve_queue``, the free-vector utilities
+(``extract_values``, ``fill_free``, ``time_vector``,
+``create_linear_initial_guess``) and the ``plot_*`` methods (plotting.py,
+which needs matplotlib), plus ``device`` (``None`` means the card; see
+config.resolve_device).
 
 Every solve is one batched solver (nlp/ipm.py) over B lanes; ``solve``
 is B = 1.  ``chunk_iters`` sets how many iterations run between host
@@ -25,6 +29,7 @@ from .nlp.kkt import check_method
 from .nlp.status import STATUS_MESSAGES
 from .transcribe.collocator import ConstraintCollocator
 from .utils import parse_free
+from . import plotting
 
 __all__ = ['Problem']
 
@@ -83,6 +88,7 @@ class Problem:
 
         self._generate_bound_arrays()
         self._generate_constraint_bound_arrays()
+        self._extraction_indices = self._extraction_indices_static()
 
         self._ipm_options = IPMOptions()
         self._factor_dtype = None
@@ -306,11 +312,14 @@ class Problem:
 
         return run_warm, run_cold, run_resume
 
-    def solve(self, free, lagrange=[], zl=[], zu=[]):
+    def solve(self, free, lagrange=[], zl=[], zu=[], respect_bounds=False):
         """Returns the optimal solution and an info dictionary with keys
         ``x``, ``g``, ``obj_val``, ``mult_g``, ``mult_x_L``,
         ``mult_x_U``, ``status``, ``status_msg`` (the reference
-        contract) plus iteration telemetry."""
+        contract) plus iteration telemetry.  ``respect_bounds`` first
+        checks the guess and the bounds (``check_bounds_conflict``)."""
+        if respect_bounds:
+            self.check_bounds_conflict(free)
         self._warn_if_hessian_structure_violated(free)
         run_warm, run_cold, run_resume = self._build_solver()
         x = self._as_tensor(free)[None]
@@ -446,6 +455,35 @@ class Problem:
         }
         return res.x, info
 
+    def check_bounds_conflict(self, free):
+        """Raises ValueError if the initial guess violates any bound or
+        a lower bound exceeds an upper bound, reversed eom_bounds
+        included."""
+        if self._eom_bounds is not None:
+            rev = [k for k, (lo, hi) in self._eom_bounds.items() if lo > hi]
+            if rev:
+                raise ValueError(
+                    'The lower bound(s) for eom_bounds {} is (are) '
+                    'greater than the upper bound(s).'.format(rev))
+        lb, ub = self.lower_bound, self.upper_bound
+        free = np.asarray(free)
+        if np.any(lb > ub):
+            bad = np.where(lb > ub)[0]
+            raise ValueError('Lower bound(s) greater than upper bound(s) '
+                             'at free indices {}.'.format(bad.tolist()))
+        viol = (free < lb) | (free > ub)
+        if np.any(viol):
+            names = self._names_for_indices(np.where(viol)[0])
+            raise ValueError(
+                'Initial guess violates bounds for: {}.'.format(names))
+
+    def _names_for_indices(self, idxs):
+        inv = {}
+        for var, ind in self._extraction_indices.items():
+            for i in ind:
+                inv[i] = var
+        return sorted({str(inv.get(i, i)) for i in idxs})
+
     # ------------------------------------------------------------------
     # free-vector utilities and callbacks
     # ------------------------------------------------------------------
@@ -457,6 +495,141 @@ class Problem:
                           col.num_unknown_input_trajectories,
                           col.num_collocation_nodes,
                           col.variable_duration)
+
+    def _indices_of(self, variables):
+        idxs = []
+        for var in variables:
+            try:
+                idxs += self._extraction_indices[var]
+            except KeyError:
+                raise ValueError(
+                    '{} not an unknown in this problem.'.format(var))
+        return idxs
+
+    def extract_values(self, free, *variables):
+        """Returns the numerical values of the given unknown variables
+        from the free vector."""
+        return np.asarray(free)[self._indices_of(variables)]
+
+    def fill_free(self, free, values, *variables):
+        """Replaces values in a free-shaped vector for the given
+        unknown variables (in place)."""
+        free[self._indices_of(variables)] = values
+
+    def time_vector(self, solution=None, start_time=0.0):
+        """The array of node times."""
+        col = self.collocator
+        N = col.num_collocation_nodes
+        if col.variable_duration:
+            if solution is None:
+                raise ValueError('Solution vector must be provided for '
+                                 'variable duration.')
+            h = float(np.asarray(solution)[-1])
+            if h <= 0.0:
+                raise ValueError('Time interval must be strictly greater '
+                                 'than zero.')
+            if start_time >= h * (N - 1):
+                raise ValueError('Start time must be less than the final '
+                                 'time.')
+        else:
+            h = col.node_time_interval
+        return np.linspace(start_time, start_time + h * (N - 1), num=N)
+
+    def create_linear_initial_guess(self, end_time=1.0):
+        """Linear-interpolation initial guess: state trajectories
+        interpolate linearly between the values of single-state instance
+        constraints; unknown inputs, parameters and the node interval
+        take their bounds' midpoints (a one-sided bound its finite end);
+        everything else is zero."""
+        col = self.collocator
+        N = col.num_collocation_nodes
+        n = col.num_states
+        guess = np.zeros(self.num_free)
+
+        # (node index, value) of instance constraints state(time) - value
+        per_state = {s: [] for s in col.state_symbols}
+        if col.instance_constraints is not None:
+            par_map = col.known_parameter_map
+            for con in col.instance_constraints:
+                con = sm.sympify(con).subs(par_map)
+                funcs = list(con.atoms(sm.Function))
+                if len(funcs) != 1:
+                    continue  # multi-instance constraints are ignored
+                func = funcs[0]
+                base = func.__class__(col.time_symbol)
+                if base not in col.state_symbols:
+                    continue
+                val = sm.solve(con, func)
+                if not val:
+                    continue
+                try:
+                    value = float(val[0])
+                except TypeError:
+                    continue
+                if col.variable_duration:
+                    time_idx = int(sm.sympify(func.args[0]).subs(
+                        col.time_interval_symbol, 1))
+                else:
+                    duration = col.node_time_interval * (N - 1)
+                    tv = np.linspace(0.0, duration, num=N)
+                    time_idx = int(np.argmin(np.abs(
+                        tv - float(func.args[0]))))
+                per_state[base].append((time_idx, value))
+
+        for i, state in enumerate(col.state_symbols):
+            pts = sorted(per_state[state])
+            if not pts:
+                continue
+            if len(pts) == 1:
+                guess[i * N:(i + 1) * N] = pts[0][1]
+            else:
+                guess[i * N:(i + 1) * N] = np.interp(
+                    np.arange(N), [p[0] for p in pts], [p[1] for p in pts])
+
+        def midpoint_of(bound):
+            low, upp = (np.asarray(b, dtype=float) for b in bound)
+            if np.any(low <= -self.INF):
+                return upp
+            if np.any(upp >= self.INF):
+                return low
+            return 0.5 * (low + upp)
+
+        if self._bounds is not None:
+            q = col.num_unknown_input_trajectories
+            for j, sym in enumerate(col.unknown_input_trajectories):
+                if sym in self._bounds:
+                    guess[n * N + j * N:n * N + (j + 1) * N] = \
+                        midpoint_of(self._bounds[sym])
+            for j, sym in enumerate(col.unknown_parameters):
+                if sym in self._bounds:
+                    guess[(n + q) * N + j] = midpoint_of(self._bounds[sym])
+
+        if col.variable_duration:
+            hsym = col.time_interval_symbol
+            if self._bounds is not None and hsym in self._bounds:
+                guess[-1] = midpoint_of(self._bounds[hsym])
+            else:
+                guess[-1] = end_time / (N - 1)
+        return guess
+
+    # ------------------------------------------------------------------
+    # plotting (plotting.py; matplotlib is imported there, at the call)
+    # ------------------------------------------------------------------
+    def plot_trajectories(self, vector, axes=None, show_bounds=False):
+        return plotting.plot_trajectories(self, vector, axes=axes,
+                                          show_bounds=show_bounds)
+
+    def plot_constraint_violations(self, vector, axes=None, subplots=False,
+                                   show_bounds=False):
+        return plotting.plot_constraint_violations(
+            self, vector, axes=axes, subplots=subplots,
+            show_bounds=show_bounds)
+
+    def plot_objective_value(self):
+        return plotting.plot_objective_value(self)
+
+    def plot_jacobian_sparsity(self, axes=None):
+        return plotting.plot_jacobian_sparsity(self, axes=axes)
 
     def objective(self, free):
         """Objective value at ``free``."""

@@ -38,17 +38,17 @@ def _as_tensor_like(v, ref):
     return torch.full((), float(v), dtype=ref.dtype, device=ref.device)
 
 
-def lambdify_torch(args, exprs, use_cse=True):
+def lambdify_torch(args, exprs, use_cse=True, printer=None):
     """Lower SymPy expressions to a torch scalar function.
 
     ``fn(*values) -> tensor of shape (len(exprs),)`` where each value is
     a 0-d tensor (or a vmapped one).  Safe under every ``torch.func``
-    transform.
+    transform.  ``printer`` replaces SymPy's torch printer.
     """
     exprs = list(exprs)
     cse_fn = _cse if use_cse else None
     raw = sm.lambdify(tuple(args), exprs,
-                      modules=[_TORCH_OVERRIDES, 'torch'],
+                      modules=[_TORCH_OVERRIDES, 'torch'], printer=printer,
                       cse=cse_fn, docstring_limit=0)
 
     def fn(*values):

@@ -1,7 +1,12 @@
-"""User-facing utilities: the counterparts of ``parse_free`` and
-``create_objective_function`` in opty_tpu/utils.py (the pendulum
-objective is built from them)."""
+"""User-facing utilities, the counterparts of opty_tpu/utils.py:
+``parse_free``, ``create_objective_function`` (torch functions of the
+free vector), ``state_derivatives``, ``f_minus_ma``, ``sum_of_sines``,
+``controllable``, ``substitute_matrix``, ``MathJaxRepr``,
+``building_docs`` and ``lambdify_matrix`` (a torch function)."""
 
+import os
+
+import numpy as np
 import sympy as sm
 import sympy.physics.mechanics as me
 import torch
@@ -10,7 +15,10 @@ from sympy.printing.pytorch import TorchPrinter
 from .config import default_dtype
 from .symbolics.classify import sort_sympy
 
-__all__ = ['parse_free', 'create_objective_function']
+__all__ = ['state_derivatives', 'f_minus_ma', 'parse_free', 'MathJaxRepr',
+           'building_docs', 'lambdify_matrix', 'create_objective_function',
+           'sort_sympy', 'sum_of_sines', 'controllable',
+           'substitute_matrix']
 
 
 class _CallPrinter(TorchPrinter):
@@ -23,6 +31,18 @@ class _CallPrinter(TorchPrinter):
             return super()._print_Function(expr)
         return '{}({})'.format(expr.func.__name__,
                                ', '.join(self._print(a) for a in expr.args))
+
+
+def state_derivatives(states):
+    """Returns functions of time which represent the time derivatives
+    of the states."""
+    return [state.diff() for state in states]
+
+
+def f_minus_ma(mass_matrix, forcing_vector, states):
+    """Returns Fr + Fr* from the mass_matrix and forcing vector."""
+    xdot = sm.Matrix(state_derivatives(states))
+    return mass_matrix * xdot - forcing_vector
 
 
 def parse_free(free, n, q, N, variable_duration=False):
@@ -131,3 +151,81 @@ def create_objective_function(objective, state_symbols,
 
     obj_grad = torch.func.grad(obj)
     return obj, obj_grad
+
+
+def sum_of_sines(sigma, frequencies, time):
+    """Returns a sum of sines centered at zero along with its first and
+    second derivatives, numpy arrays of shape (n,): sigma / 2 times the
+    sum over ``frequencies`` of sin(w t + phase), the phases drawn from
+    numpy's global generator (``np.random.seed`` makes them
+    repeatable)."""
+    w = np.atleast_1d(np.asarray(frequencies, dtype=float))
+    t = np.asarray(time, dtype=float)
+    # random_sample is the generator's ranf: the same draws
+    phase = 2.0 * np.pi * np.random.random_sample(w.shape)
+    amplitude = sigma / 2.0
+    arg = np.outer(w, t) + phase[:, None]
+    sin_a, cos_a = np.sin(arg), np.cos(arg)
+    return (amplitude * sin_a.sum(axis=0),
+            amplitude * (w[:, None] * cos_a).sum(axis=0),
+            -amplitude * (w[:, None] ** 2 * sin_a).sum(axis=0))
+
+
+def controllable(a, b):
+    """Returns True if the system is controllable, where ``a`` is the
+    state matrix and ``b`` the input matrix (the Kalman rank
+    condition)."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    n = a.shape[0]
+    if b.ndim == 1:
+        b = b[:, None]
+    cols = [b]
+    for _ in range(n - 1):
+        cols.append(a @ cols[-1])
+    return np.linalg.matrix_rank(np.hstack(cols)) == n
+
+
+def substitute_matrix(matrix, row_idxs, col_idxs, sub_matrix):
+    """Returns the matrix with the values given by row/column indices
+    replaced by the sub matrix (in place)."""
+    if sub_matrix.shape != (len(row_idxs), len(col_idxs)):
+        raise ValueError('The sub matrix is not compatible with the '
+                         'provided indices.')
+    for i, ri in enumerate(row_idxs):
+        for j, cj in enumerate(col_idxs):
+            matrix[ri, cj] = sub_matrix[i, j]
+    return matrix
+
+
+class MathJaxRepr:
+    """Display object for SymPy expressions in notebooks and docs."""
+
+    def __init__(self, expr):
+        self.expr = expr
+
+    def _repr_latex_(self):
+        return '$${}$$'.format(sm.latex(self.expr))
+
+    def __repr__(self):
+        return sm.srepr(self.expr)
+
+
+def building_docs():
+    """True when running inside a documentation build."""
+    return 'READTHEDOCS' in os.environ or 'SPHINX_BUILD' in os.environ
+
+
+def lambdify_matrix(args, expr):
+    """A SymPy matrix lowered to a torch function of scalar arguments:
+    ``fn(*values)`` returns a tensor of shape (len(expr),), the entries
+    in row-major order: symbolics/lower.py's lowering (the JAX
+    package's CSE and overrides), printed by ``_CallPrinter``, so that
+    an applied function with no torch name is a call resolved in the
+    namespace."""
+    from .symbolics.lower import _TORCH_OVERRIDES, lambdify_torch
+    printer = _CallPrinter({
+        'fully_qualified_modules': False, 'inline': True,
+        'allow_unknown_functions': True,
+        'user_functions': {k: k for k in _TORCH_OVERRIDES}})
+    return lambdify_torch(args, list(expr), printer=printer)

@@ -2,10 +2,11 @@
 """Card against CPU on the nlink-9 solve of chip_smoke.py's phase 7a
 (or 7c), one iteration at a time from a shared state: the card solves
 the chain at N = 60 (phase-7 options, ``kkt_method='cr'`` or
-``'scan'``, a float64 factorization) to each of a few iteration counts
-k in one chunk from the last; there its state is handed to the CPU
-(``interop.state_from_numpy``), both take one iteration from it, and
-the two next iterates are compared.  Needs a CUDA card:
+``'scan'``, a float64 factorization) to the last of a few iteration
+counts k, in chunks that end at each; there its state is handed to the
+CPU (``interop.state_from_numpy``), both take one iteration from it,
+and the two next iterates are compared (chip_smoke.py's
+``solve_with_crossovers``).  Needs a CUDA card:
 
     python3 scripts/nlink_crossover.py [--method cr|scan] [k ...]
 
@@ -38,8 +39,10 @@ def main():
                     default=[1, 2, 5, 10, 20, 50, 100, 200, 300])
     args = ap.parse_args()
     prob, guess = chip_smoke.nlink_problem('cuda')
-    steps = chip_smoke.nlink_crossovers(prob, guess, sorted(args.ks),
-                                        kkt_method=args.method)
+    cpu_prob, _ = chip_smoke.nlink_problem('cpu')
+    _, _, steps = chip_smoke.solve_with_crossovers(
+        prob, guess, torch.float64, args.method, sorted(args.ks), cpu_prob,
+        max_iter=max(args.ks) + 1)
     print(json.dumps(dict(device=torch.cuda.get_device_name(0),
                           method=args.method, crossovers=steps)))
 

@@ -18,18 +18,26 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_imports_no_jax_and_no_reference():
-    """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter, leave jax and opty_tpu out of sys.modules."""
+    """Every module of the port (the identification library, the plots
+    and the examples included), and chip_smoke.py, imported in a fresh
+    interpreter, leave jax and opty_tpu out of sys.modules, and
+    matplotlib too: the card's machine has none, and the plots import
+    it at the call."""
     modules = [m.name for m in pkgutil.walk_packages(
         opty_tpu_torch.__path__, 'opty_tpu_torch.')]
-    assert 'opty_tpu_torch.ops.pcr_kernels' in modules
+    for name in ('ops.pcr_kernels', 'parameter_identification', 'plotting',
+                 'utils', 'models.spring_damper',
+                 'examples.inverted_pendulum_id',
+                 'examples.vyasarayani2011'):
+        assert 'opty_tpu_torch.' + name in modules
     code = ('import sys, importlib\n'
             'sys.path.insert(0, {root!r})\n'
             'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
             'import chip_smoke\n'
             'bad = [m for m in sys.modules\n'
-            '       if m.split(".")[0] in ("jax", "jaxlib", "opty_tpu")]\n'
+            '       if m.split(".")[0] in ("jax", "jaxlib", "opty_tpu",\n'
+            '                               "matplotlib")]\n'
             'print(bad)\n'
             'sys.exit(1 if bad else 0)\n').format(
                 root=str(ROOT), mods=['opty_tpu_torch'] + modules)
@@ -39,8 +47,10 @@ def test_imports_no_jax_and_no_reference():
 
 
 def test_sources_never_name_jax():
-    for path in list((ROOT / 'opty_tpu_torch').rglob('*.py')) \
-            + [ROOT / 'chip_smoke.py']:
+    sources = list((ROOT / 'opty_tpu_torch').rglob('*.py'))
+    assert ROOT / 'opty_tpu_torch' / 'examples' / 'vyasarayani2011.py' \
+        in sources
+    for path in sources + [ROOT / 'chip_smoke.py']:
         for line in path.read_text().splitlines():
             words = line.replace('.', ' ').split()
             if words[:1] in (['import'], ['from']):
