@@ -3,6 +3,7 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gallery-process OUT.json   # 9a-9c alone
 
 Phases, each reported on its own line(s) with its wall time:
 
@@ -40,6 +41,11 @@ Phases, each reported on its own line(s) with its wall time:
    float64, against their plain versions (the downsweep bitwise equal to
    pcr_downsweep_in_order), timed L2-warm and L2-cold beside their
    bounds, the downsweep with its plan;
+3w (gallery shapes). the same at the gallery's blocks (GALLERY_SHAPES:
+   the widest block, the widest border, the longest identification
+   chain, and the register kernels of csrc/pcr.cu at d = 3, whose
+   factor is held bitwise to its plain version and downsweep to
+   TOL_REL);
 3ws. wide scan kernels: the scan factor and solve of csrc/scan_wide.cu
    at (d, b) = (50, 41), (9, 0) and (64, the widest border that fits),
    1, 8 and 32 lanes, N = 60, float32 and float64, against their plain
@@ -81,8 +87,10 @@ Phases, each reported on its own line(s) with its wall time:
    factorization: it must converge; it is compared with the port's
    recorded CPU run of the same solve (NLINK_CPU), and one iteration
    from its state at a few iteration counts, taken by the card and by
-   the CPU, must agree to NLINK_STEP_TOL; counters reset just before
-   and read just after, the wide kernels required; after it, the wide
+   the CPU (in a child process started at the beginning, while the
+   card's solve goes on), must agree to NLINK_STEP_TOL; counters reset
+   just before and read just after, the wide kernels required; after
+   it, the wide
    downsweep's launches an iteration and its device time a call in the
    solve (its first iterations again under torch.profiler), their
    product its device time an iteration;
@@ -115,7 +123,31 @@ Phases, each reported on its own line(s) with its wall time:
    GAIN_ERROR_LIMIT, the cr kernels at its block launched; counters
    reset just before and read just after;
 8b. the same for examples/vyasarayani2011.py at N = 5,000
-   (JAX_VYASARAYANI).
+   (JAX_VYASARAYANI);
+8a and 8b run right after 7a; 9a-9c run in a second process on the
+card (``--gallery-process``), started after 8b and beside 7d, 7f, 7c
+and 7b, whose gates are numerical and which report no device time; its
+output is printed after 7b.
+9a. gallery: each of the JAX package's 25 gallery problems ported
+   (opty_tpu_torch/examples/gallery/) built on the card at its own
+   defaults, its (d, b, N) and ``kernel_supported`` printed (failing
+   where refused), one IPM iteration from its documented start with the
+   card's defaults (the cr kernels must launch), then one iteration
+   from that state with a float64 factorization, card against CPU (a
+   step server started at the beginning builds the problems on the CPU
+   and takes the CPU's steps), to NLINK_STEP_TOL (GALLERY_STEP_TOL
+   where a problem has its own);
+9b. the cold-solve set (gallery.COLD_SET) solved from the documented
+   starts with the cold configuration, kkt_method='cr' and a float64
+   factorization: status 0 or 1, constraints within GALLERY_VIOLATION,
+   objectives within GALLERY_OBJ_TOL of the JAX package's recorded CPU
+   runs (JAX_GALLERY), iterations printed beside; the same solves with
+   the card's default factorization printed, not gated; betts_10_47's
+   three phases, gated on phases 1 and 3; particle_in_tube (ROADMAP.md
+   §3, fault 3) printed, not gated;
+9c. the JAX package's examples/pendulum_swing_up.py ported: its default
+   run at N = 501 (status 0, the objective within SWING_UP_OBJ_TOL of
+   JAX_SWING_UP) and ``--batch 4 --nodes 301``.
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -293,6 +325,97 @@ NLINK_VIOLATION = {0: 1e-6, 1: 1e-5}
 # stall (30 to 60 at one objective)
 NLINK_DEFAULT_MAX_ITER = 60
 JAX_CR_F32_STALL = dict(status=-1, iterations=1500, obj=38575.39)
+# phase 3w (gallery shapes): the gallery's KKT blocks (d, b, N) that
+# stretch the kernels most (d = states + unknown inputs + EoM rows, b =
+# unknown parameters + a variable node interval + instance
+# constraints): the widest block (car_on_racecourse), the widest border
+# (drone), the longest chain at an identification block (park2004) and
+# the register kernels' d = 3 at the longest chain (betts_10_7)
+GALLERY_SHAPES = {'car_on_racecourse': (33, 11, 601), 'drone': (32, 32, 301),
+                  'park2004': (8, 8, 4000), 'betts_10_7': (3, 2, 2001)}
+# the CPU's one-iteration steps from the card's states (7a's and 7c's
+# crossovers, 9a): torch threads of each step server (``step_server``;
+# 8 cores on the card's machine)
+STEP_THREADS = 2
+# phase 9a: one iteration from a shared state, card against CPU, is held
+# to NLINK_STEP_TOL, but for a step that amplifies round-off by itself,
+# held to GALLERY_STEP_TOL: double_pendulum_cart's second step (the
+# card's differs from the CPU's by 8.010e-08 in two recorded runs on the
+# H100, PERF.md §6; from that state the CPU's own scan and cr steps
+# differ by 2.964e-08), to four times the CPU's own move, as 7c's first
+# step (NLINK_SCAN_STEP_TOL)
+GALLERY_STEP_TOL = {'double_pendulum_cart': 1.2e-7}
+# phase 9b: a cold solve must end at status 0 or 1 with its constraints
+# within GALLERY_VIOLATION of [cl, cu] and its objective no more than
+# GALLERY_OBJ_TOL * max(1, |objective|) above the JAX package's run of
+# the same problem from the same guess on the CPU: JAX_GALLERY (the
+# cold configuration, kkt_method='cr', a float64 factorization) and,
+# printed beside the card's default factorization, JAX_GALLERY_F32
+# (float32): JAX_PLATFORMS=cpu python3 scripts/reference_gallery.py
+# [--factor float32], run on 2026-10-18 on an 8-core x86 CPU;
+# betts_10_47: its three phases (phase 3 from phase 2's end state).
+# The cold-solve set (opty_tpu_torch/examples/gallery: COLD_SET) is the
+# problems that converge there within 100 iterations: not betts2003
+# (status -1 after 1,000) nor crane_load (113 iterations)
+GALLERY_VIOLATION = 1e-6
+GALLERY_OBJ_TOL = 1e-6
+# particle_in_tube (ROADMAP.md §3, port fault 3): its documented start
+# puts the particle on the tube's centreline, where the distance row has
+# no derivative; there the card's EoM Jacobian differs from the CPU's by
+# up to 1.98 at 119 of 500 nodes, so the card's first iteration differs
+# from the CPU's by 0.10 relative, while the card's cr and scan first
+# iterations agree to 1.8e-15 (scripts/gallery_crossover.py on the
+# H100).  The card's cr and scan paths' objectives agree to 1e-8 for 16
+# iterations, then part; the scan path converges in 93, the cr path ends
+# at status -1 (objective 54,892.58, where it settles by iteration 75,
+# after reaching 39,069.749 at iteration 52).  Until the fault is closed its cold solve runs for
+# GALLERY_UNGATED_MAX_ITER iterations, printed, not gated; 9a holds its
+# step, card against CPU, from the card's state
+GALLERY_UNGATED = ('particle_in_tube',)
+GALLERY_UNGATED_MAX_ITER = 120
+JAX_GALLERY = {
+    'betts2003': dict(status=-1, iterations=1000,
+                      obj=0.0031944420584169085),
+    'non_contiguous_id': dict(status=0, iterations=5, obj=305.1586167161242),
+    'park2004': dict(status=0, iterations=10, obj=0.04486567897508234),
+    'betts_10_50': dict(status=0, iterations=16, obj=3.1072807122782202),
+    'path_constraints': dict(status=0, iterations=27,
+                             obj=0.4792382265435349),
+    'betts_10_103_104': dict(status=0, iterations=30,
+                             obj=12.043401729630864),
+    'betts_10_7': dict(status=0, iterations=40, obj=6.777634180269945),
+    'particle_in_tube': dict(status=0, iterations=95,
+                             obj=39069.74862636591),
+    'crane_load': dict(status=0, iterations=113, obj=0.039559979434395445),
+    'countersteer': dict(status=0, iterations=86, obj=0.006566607807183354),
+    'sliding_block': dict(status=0, iterations=88, obj=0.026518674160190433),
+    'betts_10_47': dict(status=[0, 0, 0], iterations=[7, 120, 16],
+                        obj=[-625.7078217388945, -924.4570754931646,
+                             1.901789232492869e-09]),
+}
+JAX_GALLERY_F32 = {
+    'non_contiguous_id': dict(status=0, iterations=5, obj=305.1586167161242),
+    'park2004': dict(status=0, iterations=30, obj=0.04486567897508267),
+    'betts_10_50': dict(status=0, iterations=16, obj=3.107280712278221),
+    'path_constraints': dict(status=0, iterations=27,
+                             obj=0.4792382270651139),
+    'betts_10_103_104': dict(status=0, iterations=25,
+                             obj=12.043401729847922),
+    'betts_10_7': dict(status=0, iterations=40, obj=6.777634180269944),
+    'particle_in_tube': dict(status=-1, iterations=2000,
+                             obj=39069.748650356254),
+    'countersteer': dict(status=0, iterations=202,
+                         obj=0.006565357350978718),
+    'sliding_block': dict(status=0, iterations=99,
+                          obj=0.026518674160190433),
+}
+# phase 9c: examples/pendulum_swing_up.py's runs on the CPU with the JAX
+# package's CPU defaults (the same script): N = 501, then --batch 4
+# --nodes 301; the card's N = 501 objective is gated to SWING_UP_OBJ_TOL
+# relative
+JAX_SWING_UP = dict(status=0, iterations=38, obj=15.64155366296566)
+JAX_SWING_UP_BATCH = dict(status=[0, 0, 0, 0], iterations=[44, 50, 46, 43])
+SWING_UP_OBJ_TOL = 1e-6
 
 
 def log(*args):
@@ -824,28 +947,37 @@ def check_wide_kernels(pk, bk, name):
     return rec
 
 
-def check_ident_shapes(pk, bk, name):
-    """Phase 3w at the identification examples' blocks (IDENT_SHAPES,
-    one lane, float32 and float64): the wide factor against its plain
-    version (TOL_WIDE), the wide downsweep bitwise equal to
+def check_shapes(pk, bk, name, shapes, title):
+    """Phase 3w at the blocks ``shapes`` ({label: (d, b, N)}; one lane,
+    float32 and float64): the wide factor against its plain version
+    (TOL_WIDE), the wide downsweep bitwise equal to
     pcr_downsweep_in_order and within TOL_WIDE_SWEEP of its plain
-    version, the border inverse at b (blocks.cu at 4, the wide variant
-    at 1) against its plain version (TOL_BLOCK / TOL_WIDE); each must
-    launch through the kernel the solve takes, timed L2-warm and L2-cold
-    beside its bound and its plain version, the downsweep with its plan.
-    Returns {kernel: [records]}."""
+    version; where the register kernels take the block (csrc/pcr.cu,
+    d = 3 or 5), the factor bitwise equal to its plain version and the
+    downsweep within phase 3's TOL_REL (whether it also equals
+    pcr_downsweep_in_order bitwise is printed); the border inverse at b
+    (blocks.cu up to 8, the wide variant beyond) against its plain
+    version (TOL_BLOCK / TOL_WIDE); each must launch through the kernel
+    the solve takes, timed L2-warm and L2-cold beside its bound and its
+    plain version, the downsweep with its plan.  Returns {kernel:
+    [records]}."""
     import torch
     from opty_tpu_torch.ops.tridiag import num_levels
     flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
     rec = {'pcr_factor_levels_wide': [], 'pcr_downsweep_wide': [],
+           'pcr_factor_levels': [], 'pcr_downsweep': [],
            'block_inv': [], 'block_inv_wide': []}
-    for label, (d, b, N) in IDENT_SHAPES.items():
+    for label, (d, b, N) in shapes.items():
         L = num_levels(N)
+        narrow = pk._narrow(d, b)
+        fname, sname = (('pcr_factor_levels', 'pcr_downsweep') if narrow
+                        else ('pcr_factor_levels_wide', 'pcr_downsweep_wide'))
         for dtype in (torch.float32, torch.float64):
             tag = str(dtype).split('.')[-1]
             where = '{} {} B=1 d={} b={} N={}'.format(label, tag, d, b, N)
             if not pk.kernel_supported(d, b, N, dtype):
-                fail('phase 3w: kernel_supported refuses {}'.format(where))
+                fail('phase {}: kernel_supported refuses {}'.format(title,
+                                                                    where))
             Dm, E, F, r = wide_system(dtype, 1, d, b, N)
             pk.reset_launch_counts()
             got = pk.pcr_factor_levels(Dm, E, F)
@@ -854,34 +986,37 @@ def check_ident_shapes(pk, bk, name):
             torch.cuda.synchronize()
             if (pk.factor_launches, pk.downsweep_launches,
                     pk.wide_factor_launches,
-                    pk.wide_downsweep_launches) != (0, 0, 1, 1):
-                fail('phase 3w {}: the wide kernels were not launched'.format(
-                    where))
+                    pk.wide_downsweep_launches) != (
+                        (1, 1, 0, 0) if narrow else (0, 0, 1, 1)):
+                fail('phase {} {}: the {} kernels were not launched'.format(
+                    title, where, 'register' if narrow else 'wide'))
             want = pk.pcr_factor_levels_plain(Dm, E, F)
             errs = [rel_err(g, w) for g, w in zip(got, want)]
             fabs, ferr = max(e[0] for e in errs), max(e[1] for e in errs)
             if not all(torch.isfinite(g).all().item() for g in got) \
-                    or ferr > TOL_WIDE[tag]:
-                fail('wide pcr_factor_levels {}: rel err {:.3e} > {:.0e}'
-                     .format(where, ferr, TOL_WIDE[tag]))
-            in_order = pk.pcr_downsweep_in_order(A, Bm, r)
+                    or (fabs != 0.0 if narrow else ferr > TOL_WIDE[tag]):
+                fail('{} {}: rel err {:.3e}, abs err {:.3e} ({})'.format(
+                    fname, where, ferr, fabs, 'bitwise expected' if narrow
+                    else 'limit {:.0e}'.format(TOL_WIDE[tag])))
+            in_order = same_bits(s_got, pk.pcr_downsweep_in_order(A, Bm, r))
             sabs, serr = rel_err(s_got, pk.pcr_downsweep_plain(A, Bm, r))
-            if not same_bits(s_got, in_order):
+            if not narrow and not in_order:
                 fail('wide pcr_downsweep {}: not bitwise equal to '
                      'pcr_downsweep_in_order'.format(where))
-            if not torch.isfinite(s_got).all().item() \
-                    or serr > TOL_WIDE_SWEEP[tag]:
-                fail('wide pcr_downsweep {}: rel err {:.3e}'.format(where,
-                                                                    serr))
-            plan = pk.launch_plan('wide_downsweep', 1, d, 0, N, dtype)
+            stol = (TOL_REL if narrow else TOL_WIDE_SWEEP)[tag]
+            if not torch.isfinite(s_got).all().item() or serr > stol:
+                fail('{} {}: rel err {:.3e} > {:.0e}'.format(sname, where,
+                                                              serr, stol))
+            plan = pk.launch_plan('downsweep' if narrow else 'wide_downsweep',
+                                  1, d, b if narrow else 0, N, dtype)
             f_bytes, s_bytes = pcr_bytes(Dm.element_size(), 1, N, L, d, b)
             f_ops, s_ops = flop_counts(d, b, N, L, 1)
             for kname, fn, plain_fn, aerr, err, nbytes, ops in (
-                    ('pcr_factor_levels_wide',
+                    (fname,
                      lambda: pk.pcr_factor_levels(Dm, E, F),
                      lambda: pk.pcr_factor_levels_plain(Dm, E, F), fabs,
                      ferr, f_bytes, f_ops),
-                    ('pcr_downsweep_wide', lambda: pk.pcr_downsweep(A, Bm, r),
+                    (sname, lambda: pk.pcr_downsweep(A, Bm, r),
                      lambda: pk.pcr_downsweep_plain(A, Bm, r), sabs, serr,
                      s_bytes, s_ops)):
                 ms = device_ms(fn, reps=20, sleep_cycles=WIDE_SLEEP)[0]
@@ -889,6 +1024,16 @@ def check_ident_shapes(pk, bk, name):
                 plain_ms = timed(plain_fn, 1, 1)
                 bms, by = bound(nbytes, ops, name, tag)
                 extra, note = {}, ''
+                if kname == 'pcr_downsweep':
+                    extra = dict(bitwise_in_order=in_order,
+                                 cluster=plan.cluster, grid=plan.blocks,
+                                 threads=plan.threads,
+                                 nodes_per_block=plan.nodes_per_block)
+                    note = ('; plan: grid {}, cluster {}, {} threads, {} '
+                            'nodes a block; bitwise equal to '
+                            'pcr_downsweep_in_order: {}'.format(
+                                plan.blocks, plan.cluster, plan.threads,
+                                plan.nodes_per_block, in_order))
                 if kname == 'pcr_downsweep_wide':
                     extra = dict(bitwise_in_order=True, cluster=plan.cluster,
                                  stages=plan.stages,
@@ -925,8 +1070,8 @@ def check_ident_shapes(pk, bk, name):
             launched = bk.wide_inv_launches if kname == 'block_inv_wide' \
                 else bk.inv_launches
             if launched != 1:
-                fail('phase 3w {}: the border inverse did not launch {}'
-                     .format(where, kname))
+                fail('phase {} {}: the border inverse did not launch {}'
+                     .format(title, where, kname))
             aerr, err = rel_err(got, bk.block_inv_plain(K))
             tol = (TOL_WIDE if kname == 'block_inv_wide' else TOL_BLOCK)[tag]
             if not torch.isfinite(got).all().item() or err > tol:
@@ -1562,13 +1707,14 @@ def nlink_problem(dev):
     return prob, n_link_initial_guess(prob, q_start)
 
 
-def nlink_solve(prob, guess, factor_dtype, kkt_method='cr', **options):
-    """One phase-7 solve: NLINK_OPTIONS (``options`` override them),
-    ``kkt_method``, a ``factor_dtype`` factorization.  Returns (x,
-    record)."""
+def nlink_solve(prob, guess, factor_dtype, kkt_method='cr',
+                base=NLINK_OPTIONS, **options):
+    """One phase-7 solve: ``base`` (NLINK_OPTIONS; ``options`` override
+    them), ``kkt_method``, a ``factor_dtype`` factorization.  Returns
+    (x, record)."""
     import torch
     prob.set_solver_options(kkt_method=kkt_method, factor_dtype=factor_dtype,
-                            **dict(NLINK_OPTIONS, **options))
+                            **dict(base, **options))
     t0 = time.time()
     x, info = prob.solve(guess)
     if prob.device.type == 'cuda':
@@ -1579,13 +1725,17 @@ def nlink_solve(prob, guess, factor_dtype, kkt_method='cr', **options):
                    wall_s=time.time() - t0)
 
 
-def start_cpu_references():
-    """The CPU solves of phase 4c, one child process per KKT method,
+def start_cpu_references(methods):
+    """The CPU sides of phase 4c, one child process per KKT method,
     started before the card's phases so that they overlap them."""
-    return {method: subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), '--cpu-reference',
-         method], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for method in ('cr', 'scan')}
+    children = {}
+    for method in methods:
+        children[method] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--cpu-reference',
+             method], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children[method].log_file = None
+    return children
 
 
 def restoration_phase(counters, kkt_method, child, required):
@@ -1828,28 +1978,131 @@ def pick(records, **where):
                 if all(r[k] == v for k, v in where.items()))
 
 
-def solve_with_crossovers(prob, guess, factor_dtype, kkt_method, ks,
-                          cpu_prob, **options):
-    """``nlink_solve`` through ``Problem.solve`` in chunks that end at the
-    iteration counts ``ks`` (the first chunk one iteration; each chunk
-    runs the solve's own states, bitwise those of a run in one chunk),
-    and at each k the CPU (``cpu_prob``, the plain versions) takes one
-    iteration from the card's state as the card takes its next
-    (``interop.state_from_numpy``), and the next iterates are compared:
-    {'x', 'y', 'zL', 'zU': max |difference| / max |card's|, 'mono_equal',
-    'mu'}.  The crossovers' time is taken out of the record's wall
-    (``crossover_s``).  Returns (x, record, {k: comparison})."""
+STEP_FIELDS = ('x', 'y', 'zL', 'zU', 'mono', 'mu')
+
+
+class CPUSteps:
+    """The client of a step server (``step_server``), a child process
+    that takes the CPU's one-iteration steps from the card's states
+    while the card goes on.  ``submit(key, name, options, state)``
+    hands it an IPMState (numpy arrays) of problem ``name`` (None: the
+    first iteration from the problem's start); ``collect()`` waits for
+    every step submitted and returns {key: the next iterate's
+    STEP_FIELDS}.  ``of(child)`` is the client of a child this process
+    started; another process gets the child's pipes as file objects."""
+
+    def __init__(self, stdin, stdout, log_file=None):
+        import tempfile
+        self.stdin, self.stdout, self.log_file = stdin, stdout, log_file
+        self.tmp = tempfile.mkdtemp(prefix='chip_smoke_steps_')
+        self.pending, self.seconds = {}, 0.0
+
+    @classmethod
+    def of(cls, child):
+        return cls(child.stdin, child.stdout, child.log_file)
+
+    def submit(self, key, name, options, state=None):
+        path = os.path.join(self.tmp, '{}.npz'.format(len(self.pending)))
+        req = dict(name=name, path=path, options=options)
+        if state is not None:
+            np.savez(path, **state)
+            req['state'] = True
+        self.stdin.write(json.dumps(req) + '\n')
+        self.stdin.flush()
+        self.pending[key] = path
+
+    def collect(self):
+        out = {}
+        for key, path in self.pending.items():
+            line = self.stdout.readline()
+            if not line:
+                log_text = ''
+                if self.log_file is not None:
+                    self.log_file.seek(0)
+                    log_text = self.log_file.read()[-3000:]
+                fail('the CPU step server failed: {}'.format(log_text))
+            self.seconds += json.loads(line)['seconds']
+            with np.load(path + '.cpu.npz') as z:
+                out[key] = {f: z[f] for f in STEP_FIELDS}
+        self.pending = {}
+        return out
+
+
+NLINK_NAME = 'nlink-9'
+
+
+def step_server(names):
+    """``--step-server NAME ...``: the CPU side of ``CPUSteps``.  Builds
+    each named problem on the CPU when it starts (NLINK_NAME: phase 7's
+    chain and its guess; any other name: the gallery problem at its
+    defaults and its documented start), then for each request on stdin
+    ({"name", "path", "options", "state"}) takes one iteration, with a
+    float64 factorization (the plain versions) and ``options``
+    (kkt_method and IPM options on top of the problem's defaults), from
+    the IPMState saved at ``path`` (without "state": the first iteration
+    from the problem's start), saves the next iterate's STEP_FIELDS
+    beside it (path + '.cpu.npz') and prints one JSON line."""
     import torch
+    sys.path.insert(0, HERE)
     from opty_tpu_torch import interop
-    cpu_prob.set_solver_options(kkt_method=kkt_method,
-                                factor_dtype=torch.float64, chunk_iters=1,
-                                **NLINK_OPTIONS)
-    cpu_step = cpu_prob._build_solver()[2]
-    cpu_free = torch.as_tensor(guess)[None]
+    from opty_tpu_torch.examples import gallery
+    torch.set_num_threads(STEP_THREADS)
+    built = {name: nlink_problem('cpu') if name == NLINK_NAME
+             else gallery.build(name, device='cpu') for name in names}
+    for line in sys.stdin:
+        req = json.loads(line)
+        t0 = time.time()
+        prob, guess = built[req['name']]
+        prob.set_solver_options(factor_dtype=torch.float64, chunk_iters=1,
+                                **req['options'])
+        _, run_cold, run_resume = prob._build_solver()
+        free = prob._as_tensor(guess)[None]
+        if req.get('state'):
+            with np.load(req['path']) as z:
+                state = interop.state_from_numpy(
+                    {k: z[k] for k in z.files}, 'cpu')
+            _, nxt = run_resume(free, state)
+        else:
+            _, nxt = run_cold(free)
+        np.savez(req['path'] + '.cpu.npz',
+                 **{f: getattr(nxt, f).numpy() for f in STEP_FIELDS})
+        print(json.dumps(dict(name=req['name'], seconds=time.time() - t0)),
+              flush=True)
+
+
+def start_step_server(names):
+    """Starts ``step_server`` for ``names`` in a child process (its
+    stdin and stdout pipes, its stderr in a temporary file)."""
+    import tempfile
+    log_file = tempfile.TemporaryFile('w+')
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--step-server']
+        + list(names), cwd=HERE, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=log_file, text=True)
+    child.log_file = log_file
+    return child
+
+
+def solve_with_crossovers(prob, guess, factor_dtype, kkt_method, ks, cpu,
+                          name=NLINK_NAME, base=NLINK_OPTIONS, states=None,
+                          **options):
+    """``nlink_solve`` (``base`` with ``options``) through
+    ``Problem.solve`` in chunks that end at the iteration counts ``ks``
+    (the first chunk one iteration; each chunk runs the solve's own
+    states, bitwise those of a run in one chunk), and at each k the
+    card's state is handed to the step server ``cpu`` (a ``CPUSteps``,
+    which built problem ``name``), which takes one iteration from it
+    while the card goes on; after the solve the two next iterates are
+    compared: {'x', 'y', 'zL', 'zU': max |difference| / max |card's|,
+    'mono_equal', 'mu'}.  ``states``, a dict, receives {k: {'state':
+    the shared state, 'card': the card's next iterate}} (numpy).
+    Returns (x, record, {k: comparison})."""
     rel = lambda a, b: float(np.max(np.abs(a - b))
                              / max(np.max(np.abs(b)), 1e-300))
-    out, spent, resumes = {}, [0.0], {}
-    last = dict(NLINK_OPTIONS, **options)['max_iter']
+    card, spent, resumes = {}, [0.0], {}
+    solve_options = dict(base, **options)
+    last = solve_options['max_iter']
+    cpu_options = dict(solve_options, kkt_method=kkt_method)
 
     def resume(chunk):
         """The card solver's run_resume running ``chunk`` iterations a
@@ -1872,28 +2125,29 @@ def solve_with_crossovers(prob, guess, factor_dtype, kkt_method, ks,
                 return resume(min(later) - k if later else last)(free_, st)
             res_, nxt = resume(1)(free_, st)
             t0 = time.time()
-            shared = interop.state_from_numpy(
-                {f: v.detach().cpu().numpy()
-                 for f, v in st._asdict().items()}, 'cpu')
-            _, got = cpu_step(cpu_free, shared)
-            out[k] = dict(
-                mu=float(nxt.mu[0]),
-                mono_equal=bool(nxt.mono[0].item() == got.mono[0].item()),
-                **{f: rel(getattr(got, f)[0].numpy(),
-                          getattr(nxt, f)[0].cpu().numpy())
-                   for f in ('x', 'y', 'zL', 'zU')})
+            shared = {f: v.detach().cpu().numpy()
+                      for f, v in st._asdict().items()}
+            card[k] = {f: getattr(nxt, f).cpu().numpy() for f in STEP_FIELDS}
+            if states is not None:
+                states[k] = dict(state=shared, card=card[k])
+            cpu.submit(k, name, cpu_options, shared)
             spent[0] += time.time() - t0
             return res_, nxt
         return drain(step, free, res, state)
 
     prob._drain = drain_with_crossovers
     try:
-        x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method,
+        x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method, base,
                              chunk_iters=1, **options)
     finally:
         del prob._drain
-        for p in (prob, cpu_prob):
-            p.set_solver_options(chunk_iters=None)
+        prob.set_solver_options(chunk_iters=None)
+    got = cpu.collect()
+    out = {k: dict(mu=float(card[k]['mu'][0]),
+                   mono_equal=bool(card[k]['mono'][0] == got[k]['mono'][0]),
+                   **{f: rel(got[k][f][0], card[k][f][0])
+                      for f in ('x', 'y', 'zL', 'zU')})
+           for k in card}
     rec['wall_s'] -= spent[0]
     rec['crossover_s'] = spent[0]
     return x, rec, out
@@ -1901,7 +2155,7 @@ def solve_with_crossovers(prob, guess, factor_dtype, kkt_method, ks,
 
 def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
                kkt_method='cr', required=None, forbidden=(), crossovers=None,
-               cpu_prob=None, step_tol=None, **options):
+               cpu=None, step_tol=None, **options):
     """Phase 7: the nlink-9 solve on the card through ``Problem.solve``
     (NLINK_OPTIONS with ``options``, ``kkt_method``, a ``factor_dtype``
     factorization); counters reset just before and read just after.
@@ -1914,8 +2168,9 @@ def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
     ``crossovers`` (iteration counts) the solve runs in chunks that end
     there and takes them on the way (``solve_with_crossovers``), and it
     fails unless the solve converged and one iteration from the card's
-    state at each count, card against CPU, agrees to NLINK_STEP_TOL.
-    Returns (launches, record)."""
+    state at each count, card against CPU (``cpu``, a ``CPUSteps`` whose
+    server built NLINK_NAME), agrees to NLINK_STEP_TOL.  Returns
+    (launches, record)."""
     import torch
     torch.cuda.synchronize()
     reset_counts(*counters)
@@ -1923,10 +2178,8 @@ def nlink_path(counters, label, prob, guess, factor_dtype, reference=None,
         x, rec = nlink_solve(prob, guess, factor_dtype, kkt_method,
                              **options)
     else:
-        if cpu_prob is None:
-            cpu_prob, _ = nlink_problem('cpu')
         x, rec, steps = solve_with_crossovers(
-            prob, guess, factor_dtype, kkt_method, crossovers, cpu_prob,
+            prob, guess, factor_dtype, kkt_method, crossovers, cpu,
             **options)
     launches = launch_counts(*counters)
     if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
@@ -2469,6 +2722,363 @@ def pivot_edges(pk, bk, prob, guess):
     return recs
 
 
+def gallery_sizes(prob):
+    """A problem's KKT block d (states + unknown inputs + EoM rows),
+    border b (unknown parameters + a variable node interval + instance
+    constraints) and node count N."""
+    c = prob.collocator
+    return (c.num_states + c.num_unknown_input_trajectories + c.num_eom,
+            c.num_unknown_parameters + int(c.variable_duration)
+            + c.num_instance_constraints, c.num_collocation_nodes)
+
+
+def violation(prob, x):
+    """The largest distance of the constraints from [cl, cu] (eom_bounds
+    rows are path inequalities)."""
+    g = prob.constraints(x)
+    cl, cu = prob._low_con_bounds, prob._upp_con_bounds
+    return float(np.max(np.maximum(np.maximum(cl - g, g - cu), 0.0)))
+
+
+def gallery_steps(counters, cpu, smi):
+    """Phase 9a: every gallery problem built on the card at its defaults
+    (``gallery.build``: ``build_problem`` and ``initial_guess``;
+    betts_10_47 its first phase), its (d, b, N) and ``kernel_supported``
+    printed, failing where a dtype is refused; one IPM iteration from
+    its documented start with the card's defaults, counters reset just
+    before and read just after: the cr path's factor and downsweep (and
+    the border inverse where b > 0) must launch; then one iteration from
+    that state with kkt_method='cr' and a float64 factorization, taken
+    by the card and by the CPU (``cpu``, a ``CPUSteps`` whose server
+    built every gallery problem), must agree to NLINK_STEP_TOL relative
+    in x, y, zL and zU (GALLERY_STEP_TOL where a problem has its own),
+    with the same monotone-mode flag.  Returns ({name: (problem,
+    guess)}, {name: record})."""
+    import torch
+    from opty_tpu_torch.examples import gallery
+    from opty_tpu_torch.ops import pcr_kernels as pk
+    built, recs, card = {}, {}, {}
+    for name in gallery.NAMES:
+        t0 = time.time()
+        prob, guess = gallery.build(name, device='cuda')
+        build_s = time.time() - t0
+        d, b, N = gallery_sizes(prob)
+        supported = {str(dt).split('.')[-1]: pk.kernel_supported(d, b, N, dt)
+                     for dt in (torch.float32, torch.float64)}
+        x0 = prob._as_tensor(guess)[None]
+        prob.set_solver_options(chunk_iters=1)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.time()
+        _, state = prob._build_solver()[1](x0)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        launches = {k: v for k, v in launch_counts(*counters).items() if v}
+        prob.set_solver_options(kkt_method='cr', factor_dtype=torch.float64)
+        _, nxt = prob._build_solver()[2](x0, state)
+        prob.set_solver_options(chunk_iters=None)
+        cpu.submit(name, name, dict(kkt_method='cr'),
+                   {f: v.detach().cpu().numpy()
+                    for f, v in state._asdict().items()})
+        card[name] = {f: getattr(nxt, f).cpu().numpy() for f in STEP_FIELDS}
+        built[name] = (prob, guess)
+        recs[name] = dict(d=d, b=b, nodes=N, kernel_supported=supported,
+                          launches=launches, build_s=build_s,
+                          first_iteration_s=first_s)
+        log('9a {}: (d, b, N) = ({}, {}, {}), kernel_supported {}; one '
+            'iteration with the card\'s defaults: {:.2f} s (build {:.1f} s), '
+            'launches {}'.format(name, d, b, N, json.dumps(supported),
+                                 first_s, build_s, json.dumps(launches)))
+        if not all(supported.values()):
+            fail('9a {}: kernel_supported refuses (d, b, N) = ({}, {}, {})'
+                 .format(name, d, b, N))
+        factor = launches.get('pcr_factor_levels', 0) \
+            + launches.get('pcr_factor_levels_wide', 0)
+        sweep = launches.get('pcr_downsweep', 0) \
+            + launches.get('pcr_downsweep_wide', 0)
+        border = launches.get('block_inv', 0) \
+            + launches.get('block_inv_wide', 0)
+        if not factor or not sweep or (b and not border):
+            fail('9a {}: the cr kernels were not launched: {}'.format(
+                name, json.dumps(launches)))
+    t0 = time.time()
+    cpu_steps = cpu.collect()
+    log('9a: the CPU side ended {:.1f} s after the card\'s ({} steps, {:.1f} '
+        's of CPU steps)'.format(time.time() - t0, len(cpu_steps),
+                                 cpu.seconds))
+    worst, tol = {}, {}
+    for name in gallery.NAMES:
+        got, want = cpu_steps[name], card[name]
+        recs[name]['step_rel'] = {
+            f: float(np.max(np.abs(got[f] - want[f]))
+                     / max(np.max(np.abs(want[f])), 1e-300))
+            for f in ('x', 'y', 'zL', 'zU')}
+        worst[name] = max(recs[name]['step_rel'].values())
+        tol[name] = GALLERY_STEP_TOL.get(name, NLINK_STEP_TOL)
+    log('9a: one iteration (float64 factor) from the card\'s state, card '
+        'against CPU, largest relative difference of x, y, zL, zU: {} '
+        '(limit {:.0e}; GALLERY_STEP_TOL {}; {})'.format(
+            json.dumps({k: float('{:.3e}'.format(v))
+                        for k, v in worst.items()}), NLINK_STEP_TOL,
+            json.dumps(GALLERY_STEP_TOL), smi))
+    for name in gallery.NAMES:
+        if not worst[name] <= tol[name] or not np.array_equal(
+                cpu_steps[name]['mono'], card[name]['mono']):
+            fail('9a {}: one iteration from the card\'s state differs, card '
+                 'against CPU: {} (limit {:.3e}), mono {} / {}'.format(
+                     name, json.dumps(recs[name]['step_rel']), tol[name],
+                     card[name]['mono'].tolist(),
+                     cpu_steps[name]['mono'].tolist()))
+    return built, recs
+
+
+def gallery_gate(rec, ref):
+    """Whether a cold solve meets phase 9b's gates against the JAX
+    package's record ``ref``."""
+    return (rec['status'] in (0, 1)
+            and rec['violation'] <= GALLERY_VIOLATION
+            and rec['obj'] <= ref['obj'] + GALLERY_OBJ_TOL * max(
+                1.0, abs(ref['obj'])))
+
+
+def gallery_cold(counters, built, smi):
+    """Phase 9b: each problem of the cold-solve set (``gallery.COLD_SET``)
+    solved on the card from its documented start with
+    benchmarks/cold_gallery.py's configuration (``use_soc=False``, its
+    ``COLD_MAX_ITER``), kkt_method='cr' and a float64 factorization,
+    counters reset just before and read just after: status 0 or 1, the
+    constraints within GALLERY_VIOLATION, the objective within
+    GALLERY_OBJ_TOL of JAX_GALLERY's; iterations printed beside the JAX
+    package's; then the same solve with the card's default factorization
+    (float32 + 6 rounds), held to the same gates but printed, not
+    gated, beside JAX_GALLERY_F32.
+    betts_10_47 runs its three phases (``run_phases``, float64 factor):
+    the gates on phases 1 and 3, phase 2's status printed.  The problems of
+    GALLERY_UNGATED run for GALLERY_UNGATED_MAX_ITER iterations, printed,
+    not gated.  Returns {name: record}."""
+    import importlib
+    import torch
+    from opty_tpu_torch.config import default_factor_dtype
+    from opty_tpu_torch.examples import gallery
+    recs = {}
+    for name in gallery.COLD_SET:
+        mod = importlib.import_module('opty_tpu_torch.examples.gallery.'
+                                      + name)
+        prob, guess = built[name]
+        gated = name not in GALLERY_UNGATED
+        for tag, factor, jax_run in (
+                ('float64', torch.float64, JAX_GALLERY[name]),
+                ('default', default_factor_dtype(prob.device),
+                 JAX_GALLERY_F32[name])):
+            if not gated and tag == 'default':
+                continue
+            prob.set_solver_options(
+                max_iter=mod.COLD_MAX_ITER if gated
+                else GALLERY_UNGATED_MAX_ITER,
+                use_soc=False, kkt_method='cr', factor_dtype=factor)
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.time()
+            x, info = prob.solve(guess)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {k: v for k, v in launch_counts(*counters).items()
+                        if v}
+            if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
+                fail('9b {} {}: the solution has the wrong shape or is not '
+                     'finite'.format(name, tag))
+            rec = dict(status=info['status'], iterations=info['iterations'],
+                       obj=info['obj_val'], violation=violation(prob, x),
+                       wall_s=wall, launches=launches)
+            # both factorizations are held to the float64 run's optimum
+            met = gallery_gate(rec, JAX_GALLERY[name])
+            recs.setdefault(name, {})[tag] = dict(rec, met=met)
+            log('9b {} {} factor: status={} iterations={} obj={!r} '
+                'violation={:.3e} wall_s={:.2f} ({:.1f} ms an iteration); '
+                'the JAX package on the CPU ({}): {}; gates {}; launches {} '
+                '({})'.format(
+                    name, tag, rec['status'], rec['iterations'], rec['obj'],
+                    rec['violation'], wall,
+                    wall / max(rec['iterations'], 1) * 1e3,
+                    'cr float64' if tag == 'float64' else 'cr float32',
+                    json.dumps(jax_run), 'met' if met else
+                    ('NOT MET' if tag == 'float64' and gated else 'not met '
+                     '(not gated)'), json.dumps(launches), smi))
+            if tag == 'float64' and gated and not met:
+                fail('9b {}: the cold solve fails its gates against the JAX '
+                     'package\'s run'.format(name))
+    from opty_tpu_torch.examples.gallery import betts_10_47
+    ref = JAX_GALLERY['betts_10_47']
+    t0 = time.time()
+    phases = betts_10_47.run_phases(
+        verbose=False, device='cuda',
+        solver_options=dict(kkt_method='cr', factor_dtype=torch.float64))
+    wall = time.time() - t0
+    # every constraint of the three phases is an equality: the violation
+    # is the largest |g|
+    rows = [dict(status=info['status'], iterations=info['iterations'],
+                 obj=info['obj_val'],
+                 violation=float(np.max(np.abs(info['g']))))
+            for _, info in phases]
+    met = all(gallery_gate(rows[k], dict(obj=ref['obj'][k]))
+              for k in (0, 2))
+    recs['betts_10_47'] = {'float64': dict(phases=rows, met=met,
+                                           wall_s=wall)}
+    log('9b betts_10_47 float64 factor: phases (status, iterations, obj) '
+        '{}; the JAX package on the CPU: {}; gates on phases 1 and 3 {}; '
+        'wall_s={:.2f} ({})'.format(
+            [(r['status'], r['iterations'], r['obj']) for r in rows],
+            json.dumps(ref), 'met' if met else 'NOT MET', wall, smi))
+    if not met:
+        fail('9b betts_10_47: phases 1 and 3 fail their gates')
+    return recs
+
+
+def swing_up_examples(counters, smi):
+    """Phase 9c: the JAX package's examples/pendulum_swing_up.py ported
+    (opty_tpu_torch/examples/), its ``main`` on the card with its
+    defaults (N = 501): status 0 and the objective within
+    SWING_UP_OBJ_TOL relative of JAX_SWING_UP; then ``--batch 4 --nodes
+    301`` (``solve_batch``), its statuses printed beside the JAX
+    package's.  Counters reset just before each and read just after.
+    Returns a record."""
+    import torch
+    from opty_tpu_torch.examples import pendulum_swing_up as ex
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.time()
+    x, info = ex.main([])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for k, v in launch_counts(*counters).items() if v}
+    rel = abs(info['obj_val'] - JAX_SWING_UP['obj']) / abs(
+        JAX_SWING_UP['obj'])
+    rec = dict(status=info['status'], iterations=info['iterations'],
+               obj=info['obj_val'], rel_to_jax=rel, wall_s=wall,
+               launches=launches)
+    log('9c pendulum_swing_up N=501 (the card\'s defaults): status={} '
+        'iterations={} obj={!r} wall_s={:.2f}; the JAX package on the CPU: '
+        '{}; objective rel diff {:.3e} (limit {:.0e}); launches {} ({})'
+        .format(info['status'], info['iterations'], info['obj_val'], wall,
+                json.dumps(JAX_SWING_UP), rel, SWING_UP_OBJ_TOL,
+                json.dumps(launches), smi))
+    if x.ndim != 1 or not np.all(np.isfinite(x)):
+        fail('9c: the solution has the wrong shape or is not finite')
+    if info['status'] != 0 or not rel <= SWING_UP_OBJ_TOL:
+        fail('9c: pendulum_swing_up status {} objective {!r} against the '
+             'JAX package\'s {!r}'.format(info['status'], info['obj_val'],
+                                          JAX_SWING_UP['obj']))
+    reset_counts(*counters)
+    t0 = time.time()
+    res = ex.main(['--batch', '4', '--nodes', '301'])
+    torch.cuda.synchronize()
+    batch = dict(status=res.status.cpu().numpy().tolist(),
+                 iterations=res.iterations.cpu().numpy().tolist(),
+                 obj=res.obj_val.cpu().numpy().tolist(),
+                 wall_s=time.time() - t0,
+                 launches={k: v for k, v in launch_counts(*counters).items()
+                           if v})
+    rec['batch'] = batch
+    log('9c pendulum_swing_up --batch 4 --nodes 301: statuses {} iterations '
+        '{} wall_s={:.2f}; the JAX package on the CPU: {}; launches {}'
+        .format(batch['status'], batch['iterations'], batch['wall_s'],
+                json.dumps(JAX_SWING_UP_BATCH), json.dumps(batch['launches'])))
+    return rec
+
+
+def gallery_phases(counters, smi, cpu):
+    """Phases 9a, 9b and 9c (``cpu``: 9a's ``CPUSteps``).  Returns
+    {kernel: {'launches_gallery': {...}}} for the kernels' JSON record:
+    the launches in 9a's first iterations (the card's defaults) and in
+    9b's float64 cold solves, with those solves' iterations."""
+    built, steps = phase('9a gallery', gallery_steps, counters, cpu, smi)
+    cold = phase('9b gallery cold solves', gallery_cold, counters, built,
+                 smi)
+    phase('9c swing-up example', swing_up_examples, counters, smi)
+    del built
+    solves = [r['float64'] for name, r in cold.items()
+              if 'launches' in r['float64'] and name not in GALLERY_UNGATED]
+    return {kname: dict(launches_gallery=dict(
+        first_iterations=sum(r['launches'].get(kname, 0)
+                             for r in steps.values()),
+        cold_float64=sum(r['launches'].get(kname, 0) for r in solves),
+        cold_float64_iterations=sum(r['iterations'] for r in solves)))
+        for kname, _, _, _ in KERNELS}
+
+
+def gallery_process(out_path, fds=()):
+    """``--gallery-process OUT [W R]``: phases 9a-9c in a process of
+    their own on the same card, their records written to OUT as JSON.
+    9a's CPU steps go to the step server whose stdin and stdout are the
+    descriptors W and R (chip_smoke.py starts that server when it
+    starts, so that its builds of the 25 problems overlap the first
+    phases); without them this process starts its own.  chip_smoke.py
+    runs it beside phases 7d, 7f, 7c and 7b, whose gates are numerical
+    and which report no device time, so that the gallery adds little to
+    the script's wall: those phases leave the card idle most of the
+    time (PERF.md §5), and the card time-slices the two processes."""
+    import torch
+    if not torch.cuda.is_available():
+        fail('no CUDA device: chip_smoke.py runs on the card only')
+    sys.path.insert(0, HERE)
+    from opty_tpu_torch.examples import gallery
+    from opty_tpu_torch.ops import block_kernels as bk
+    from opty_tpu_torch.ops import pcr_kernels as pk
+    from opty_tpu_torch.ops import scan_kernels as sk
+    smi = device_line()
+    children = {}
+    if fds:
+        cpu = CPUSteps(os.fdopen(int(fds[0]), 'w'), os.fdopen(int(fds[1])))
+    else:
+        children['steps'] = start_step_server(gallery.NAMES)
+        cpu = CPUSteps.of(children['steps'])
+    try:
+        out = gallery_phases((pk, bk, sk), smi, cpu)
+    finally:
+        stop_children(children)
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+
+
+def start_gallery_process(server):
+    """Starts ``gallery_process`` in a child process, its CPU steps
+    taken by the step server ``server`` (a child of this process);
+    returns (the process, its output file's path, its log files, the
+    start time)."""
+    import tempfile
+    out_path = os.path.join(tempfile.mkdtemp(prefix='chip_smoke_gallery_'),
+                            'gallery.json')
+    logs = (tempfile.TemporaryFile('w+'), tempfile.TemporaryFile('w+'))
+    fds = (server.stdin.fileno(), server.stdout.fileno())
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--gallery-process',
+         out_path] + [str(fd) for fd in fds], cwd=HERE, stdout=logs[0],
+        stderr=logs[1], text=True, pass_fds=fds)
+    proc.log_file = None
+    return proc, out_path, logs, time.time()
+
+
+def finish_gallery_process(started, server):
+    """Waits for the gallery process, prints its output and fails with
+    it (and with its step server's log); returns its records."""
+    proc, out_path, logs, t0 = started
+    t1 = time.time()
+    rc = proc.wait(timeout=1200)
+    for f in logs:
+        f.seek(0)
+    out, err = logs[0].read(), logs[1].read()
+    log(out.rstrip())
+    log('phase 9 gallery (a second process on the card, beside 7d, 7f, 7c '
+        'and 7b): {:.1f} s, {:.1f} s of it after 7b'.format(
+            time.time() - t0, time.time() - t1))
+    if rc != 0:
+        server.log_file.seek(0)
+        fail('the gallery process (phases 9a-9c) failed: {}; its step '
+             'server: {}'.format(err[-3000:], server.log_file.read()[-2000:]))
+    with open(out_path) as f:
+        return json.load(f)
+
+
 def kernel_records(pcr, scan, blocks, launches, in_solve, iterations,
                    ident_shapes):
     """The JSON entries, each at the shape and dtype its path runs it:
@@ -2585,6 +3195,12 @@ def main():
     if sys.argv[1:2] == ['--cpu-reference']:
         cpu_reference(sys.argv[2])
         return
+    if sys.argv[1:2] == ['--gallery-process']:
+        gallery_process(sys.argv[2], sys.argv[3:5])
+        return
+    if sys.argv[1:2] == ['--step-server']:
+        step_server(sys.argv[2:])
+        return
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device: chip_smoke.py runs on the card only')
@@ -2592,25 +3208,44 @@ def main():
     from opty_tpu_torch.ops import block_kernels as bk
     from opty_tpu_torch.ops import pcr_kernels as pk
     from opty_tpu_torch.ops import scan_kernels as sk
+    from opty_tpu_torch.examples import gallery
     counters = (pk, bk, sk)
-    children = start_cpu_references()
+    children = start_cpu_references(('cr', 'scan'))
+    # the CPU's steps of 7a's and 7c's crossovers and of 9a, two step
+    # servers that build their problems while the card's phases go on
+    children['steps'] = start_step_server([NLINK_NAME])
+    children['gallery steps'] = start_step_server(gallery.NAMES)
     try:
         run(torch, counters, pk, bk, sk, children)
     finally:
-        for child in children.values():
-            if child.poll() is None:
-                child.kill()
-            child.communicate()
+        stop_children(children)
+
+
+def stop_children(children):
+    """Kills what still runs of ``children`` and closes their pipes."""
+    for child in children.values():
+        if child.poll() is None:
+            child.kill()
+        for pipe in (child.stdin, child.stdout, child.stderr,
+                     child.log_file):
+            if pipe is not None:
+                pipe.close()
+        child.wait()
+
+
+def device_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def run(torch, counters, pk, bk, sk, children):
     # 1. device
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = device_line()
     log('device: {} count={} torch={} cuda={} ({})'.format(
         name, count, torch.__version__, torch.version.cuda, smi))
 
@@ -2636,8 +3271,10 @@ def run(torch, counters, pk, bk, sk, children):
     wide = phase('3w wide kernels', check_wide_kernels, pk, bk, name)
     wide.update(phase('3ws wide scan kernels', check_wide_scan_kernels, sk,
                       name))
-    ident_shapes = phase('3w identification shapes', check_ident_shapes, pk,
-                         bk, name)
+    ident_shapes = phase('3w identification shapes', check_shapes, pk, bk,
+                         name, IDENT_SHAPES, '3w')
+    gal_shapes = phase('3w gallery shapes', check_shapes, pk, bk, name,
+                       GALLERY_SHAPES, '3w (gallery shapes)')
 
     # 4. small reference solves, card against CPU
     phase('4 reference cr', reference_solve, 'cr', counters)
@@ -2722,11 +3359,14 @@ def run(torch, counters, pk, bk, sk, children):
     # 7b. the card's default factorization, NLINK_DEFAULT_MAX_ITER
     # iterations of its stall
     from opty_tpu_torch.config import default_factor_dtype
-    cpu_prob, _ = phase('7 nlink build (CPU)', nlink_problem, 'cpu')
+    # the crossovers' CPU steps: a step server started at the beginning
+    # (it builds the CPU's nlink-9 problem there) takes them while the
+    # card's solve goes on
+    steps_cpu = CPUSteps.of(children['steps'])
     nlink_f64, rec_f64 = phase(
         '7a nlink float64', nlink_path, counters, 'nlink float64', prob,
         guess, torch.float64, NLINK_CPU, crossovers=NLINK_CROSSOVERS,
-        cpu_prob=cpu_prob)
+        cpu=steps_cpu)
     sweep_ms, sweep_calls = phase('7a wide downsweep in the solve',
                                   sweep_in_solve, prob, guess)
     per_iter = nlink_f64['pcr_downsweep_wide'] / max(rec_f64['iterations'],
@@ -2736,13 +3376,22 @@ def run(torch, counters, pk, bk, sk, children):
         'first {} calls): {:.4f} ms of device time an iteration ({})'.format(
             nlink_f64['pcr_downsweep_wide'], rec_f64['iterations'], per_iter,
             sweep_ms * 1e3, sweep_calls, per_iter * sweep_ms, smi))
+    # 8a, 8b. the JAX package's identification examples at their sizes
+    ident = {label: phase(label + ' identification', ident_solve, counters,
+                          label, smi) for label in IDENT_SHAPES}
+    # 9a-9c. the gallery and the swing-up example, in a second process
+    # on the card beside 7d, 7f, 7c and 7b (their gates are numerical
+    # and they report no device time; the phases before them had the
+    # card to themselves)
+    gallery_run = start_gallery_process(children['gallery steps'])
+    children['gallery process'] = gallery_run[0]
     phase('7d reproducibility', reproducibility, prob, guess)
     phase('7f pivot edges', pivot_edges, pk, bk, prob, guess)
     nlink_scan, rec_scan = phase(
         '7c nlink scan float64', nlink_path, counters, 'nlink scan float64',
         prob, guess, torch.float64, kkt_method='scan',
         required=WIDE_SCAN_KERNELS, forbidden=PCR_KERNELS,
-        crossovers=NLINK_SCAN_CROSSOVERS, cpu_prob=cpu_prob,
+        crossovers=NLINK_SCAN_CROSSOVERS, cpu=steps_cpu,
         step_tol=NLINK_SCAN_STEP_TOL)
     log('nlink scan float64: status={} iterations={} obj={:.12g} '
         'wall_s={:.2f} '
@@ -2773,13 +3422,13 @@ def run(torch, counters, pk, bk, sk, children):
             rec_def['iterations'], rec_def['wall_s'],
             json.dumps(JAX_GAIT_CPU)))
 
-
-    # 8a, 8b. the JAX package's identification examples at their sizes
-    ident = {label: phase(label + ' identification', ident_solve, counters,
-                          label, smi) for label in IDENT_SHAPES}
+    gallery = finish_gallery_process(gallery_run, children['gallery steps'])
+    for kname, recs in gal_shapes.items():
+        if recs:
+            gallery[kname]['gallery_shapes'] = recs
 
     blocks.update(wide)
-    print(json.dumps({'kernels': kernel_records(
+    records = kernel_records(
         pcr, scan, blocks, {'cr': cr_launches, 'scan': scan_launches,
                             'default': def_launches, 'rest_cr': rest_cr,
                             'rest_scan': rest_scan, 'nlink': nlink_def,
@@ -2789,7 +3438,10 @@ def run(torch, counters, pk, bk, sk, children):
                           for label in IDENT_SHAPES}),
         {'nlink_scan': rec_scan['iterations'],
          '8a': ident['8a'][1]['iterations'],
-         '8b': ident['8b'][1]['iterations']}, ident_shapes)}), flush=True)
+         '8b': ident['8b'][1]['iterations']}, ident_shapes)
+    for entry in records:
+        entry.update(gallery.get(entry['name'], {}))
+    print(json.dumps({'kernels': records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': count}}), flush=True)

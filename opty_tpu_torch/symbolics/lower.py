@@ -10,6 +10,7 @@ lower the same expressions to the same operation sequence.
 
 import sympy as sm
 import torch
+from sympy.printing.pytorch import TorchPrinter
 
 __all__ = ['lambdify_torch']
 
@@ -27,6 +28,40 @@ def _safe_tanh(x):
 
 
 _TORCH_OVERRIDES = {'tanh': _safe_tanh}
+
+
+class _CodePrinter(TorchPrinter):
+    """SymPy's torch printer with two additions: a function that knows
+    how to print itself (the musculotendon curves of
+    ``sympy.physics.biomechanics``, ``_print_code``) is printed as the
+    other code printers do, from its unevaluated definition; and a
+    function or power of numbers alone (``sqrt(2)``, which torch's
+    functions refuse as a Python number) is printed as its float64
+    value."""
+
+    def _constant(self, expr):
+        return repr(float(sm.N(expr, 30)))
+
+    def _print_Function(self, expr):
+        if expr.is_number:
+            return self._constant(expr)
+        if type(expr) not in self.mapping and hasattr(expr, '_print_code'):
+            return expr._print_code(self)
+        return super()._print_Function(expr)
+
+    def _print_Pow(self, expr):
+        if expr.is_number:
+            return self._constant(expr)
+        return super()._print_Pow(expr)
+
+
+def _default_printer():
+    """The printer ``lambdify`` would make for the torch namespace,
+    with ``_CodePrinter``'s addition."""
+    return _CodePrinter({
+        'fully_qualified_modules': False, 'inline': True,
+        'allow_unknown_functions': True,
+        'user_functions': {k: k for k in _TORCH_OVERRIDES}})
 
 
 def _as_tensor_like(v, ref):
@@ -48,7 +83,8 @@ def lambdify_torch(args, exprs, use_cse=True, printer=None):
     exprs = list(exprs)
     cse_fn = _cse if use_cse else None
     raw = sm.lambdify(tuple(args), exprs,
-                      modules=[_TORCH_OVERRIDES, 'torch'], printer=printer,
+                      modules=[_TORCH_OVERRIDES, 'torch'],
+                      printer=printer or _default_printer(),
                       cse=cse_fn, docstring_limit=0)
 
     def fn(*values):

@@ -398,13 +398,18 @@ class ConstraintCollocator:
         deriv_of = {key.expr: key for key in tmap
                     if isinstance(key, sm.Derivative)}
         specs = {}
-        probe = torch.ones(self.num_free, dtype=torch.float64)
+        # on the problem's device: a callable may hold tensors there
+        probe = torch.ones(self.num_free, dtype=torch.float64,
+                           device=self._device)
+
+        def shape_of(out):
+            return tuple(out.shape) if isinstance(out, torch.Tensor) \
+                else np.shape(out)
 
         def data_spec(key, val):
             """('array', tensor) or ('free_callable', fn) for (N,) data."""
             if callable(val) and not isinstance(val, np.ndarray):
-                test = np.asarray(val(probe))
-                if test.shape[-1] != N:
+                if shape_of(val(probe))[-1:] != (N,):
                     raise ValueError(
                         'The known parameter {} is not length {}.'
                         .format(key, N))
@@ -422,10 +427,10 @@ class ConstraintCollocator:
             if not callable(val) or isinstance(val, np.ndarray):
                 return False
             try:
-                out = np.asarray(val(probe))
+                shape = shape_of(val(probe))
             except Exception:
                 return True
-            return out.shape == () or out.shape == (self.num_free,)
+            return shape == () or shape == (self.num_free,)
 
         for key, val in tmap.items():
             args = getattr(key, 'args', (self._time_symbol,))

@@ -4,9 +4,9 @@
 the chain at N = 60 (phase-7 options, ``kkt_method='cr'`` or
 ``'scan'``, a float64 factorization) to the last of a few iteration
 counts k, in chunks that end at each; there its state is handed to the
-CPU (``interop.state_from_numpy``), both take one iteration from it,
-and the two next iterates are compared (chip_smoke.py's
-``solve_with_crossovers``).  Needs a CUDA card:
+CPU (chip_smoke.py's step server, a child process), both take one
+iteration from it, and the two next iterates are compared
+(chip_smoke.py's ``solve_with_crossovers``).  Needs a CUDA card:
 
     python3 scripts/nlink_crossover.py [--method cr|scan] [k ...]
 
@@ -38,11 +38,14 @@ def main():
     ap.add_argument('ks', nargs='*', type=int,
                     default=[1, 2, 5, 10, 20, 50, 100, 200, 300])
     args = ap.parse_args()
-    prob, guess = chip_smoke.nlink_problem('cuda')
-    cpu_prob, _ = chip_smoke.nlink_problem('cpu')
-    _, _, steps = chip_smoke.solve_with_crossovers(
-        prob, guess, torch.float64, args.method, sorted(args.ks), cpu_prob,
-        max_iter=max(args.ks) + 1)
+    server = chip_smoke.start_step_server([chip_smoke.NLINK_NAME])
+    try:
+        prob, guess = chip_smoke.nlink_problem('cuda')
+        _, _, steps = chip_smoke.solve_with_crossovers(
+            prob, guess, torch.float64, args.method, sorted(args.ks),
+            chip_smoke.CPUSteps.of(server), max_iter=max(args.ks) + 1)
+    finally:
+        chip_smoke.stop_children({'steps': server})
     print(json.dumps(dict(device=torch.cuda.get_device_name(0),
                           method=args.method, crossovers=steps)))
 
