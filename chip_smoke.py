@@ -3,7 +3,8 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --gallery-process OUT.json   # 9a-9c alone
+    python3 chip_smoke.py --gallery-process OUT.json   # 9a-9c and 10
+    python3 chip_smoke.py --spike-phase                # 10 alone
 
 Phases, each reported on its own line(s) with its wall time:
 
@@ -54,8 +55,9 @@ Phases, each reported on its own line(s) with its wall time:
    cluster size each kernel is built for, checked and timed L2-cold;
 4. reference: a small solve (N = 101, float64 factorization, monotone
    mu, no second-order correction) on the card against the same solve
-   on the CPU (the plain versions), once with kkt_method='cr' (4) and
-   once with 'scan' (4b, through the scan kernels, by their counters);
+   on the CPU (the plain versions, in the child processes of 4c, which
+   solve it first), once with kkt_method='cr' (4) and once with 'scan'
+   (4b, through the scan kernels, by their counters);
 4c. restoration: N = 101 swing-up solves with the library's default
    options (adaptive mu, second-order correction, restoration) from
    starts that enter restoration (REST_SEEDS), float64 factorization,
@@ -124,10 +126,10 @@ Phases, each reported on its own line(s) with its wall time:
    reset just before and read just after;
 8b. the same for examples/vyasarayani2011.py at N = 5,000
    (JAX_VYASARAYANI);
-8a and 8b run right after 7a; 9a-9c run in a second process on the
-card (``--gallery-process``), started after 8b and beside 7d, 7f, 7c
-and 7b, whose gates are numerical and which report no device time; its
-output is printed after 7b.
+8a and 8b run right after 7a; 9a-9c and 10 run in a second process on
+the card (``--gallery-process``), started after 8b and beside 7d, 7f,
+7c and 7b, whose gates are numerical and which report no device time;
+its output is printed after 7b.
 9a. gallery: each of the JAX package's 25 gallery problems ported
    (opty_tpu_torch/examples/gallery/) built on the card at its own
    defaults, its (d, b, N) and ``kernel_supported`` printed (failing
@@ -147,7 +149,21 @@ output is printed after 7b.
    §3, fault 3) printed, not gated;
 9c. the JAX package's examples/pendulum_swing_up.py ported: its default
    run at N = 501 (status 0, the objective within SWING_UP_OBJ_TOL of
-   JAX_SWING_UP) and ``--batch 4 --nodes 301``.
+   JAX_SWING_UP) and ``--batch 4 --nodes 301``;
+10. spike (parallel/spike.py, the node axis split into slabs on the one
+   card): the local factorization's kernels (scan_factor with the spike
+   columns as its border, scan_solve with none) against the plain
+   ``_local_factor`` / ``_local_solve`` at 10c's slabs; 10a
+   ``spike_solve`` on SPIKE_SLABS slabs of a random symmetric system at
+   the main path's blocks and N = SPIKE_NODES against the card's scan
+   solve of it, float64 and float32 (SPIKE_TOL), its scan_factor
+   launch's device time beside; 10b ``spike_factor`` + ``spike_apply``
+   against ``spike_solve``; 10c bench.py's queue row 0 at N = 501 solved
+   with kkt_method='spike' on SPIKE_PATH_SLABS slabs, a float64 factor
+   and monotone mu, against the same row's scan solve: the same status,
+   iterations within SPIKE_ITER_SLACK, the objective within
+   SPIKE_OBJ_TOL; counters reset just before and read just after, the
+   spike kernels (SPIKE_KERNELS) required and no PCR kernel.
 
 The line before last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -159,6 +175,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -368,9 +385,11 @@ GALLERY_OBJ_TOL = 1e-6
 # H100).  The card's cr and scan paths' objectives agree to 1e-8 for 16
 # iterations, then part; the scan path converges in 93, the cr path ends
 # at status -1 (objective 54,892.58, where it settles by iteration 75,
-# after reaching 39,069.749 at iteration 52).  Until the fault is closed its cold solve runs for
-# GALLERY_UNGATED_MAX_ITER iterations, printed, not gated; 9a holds its
-# step, card against CPU, from the card's state
+# after reaching 39,069.749 at iteration 52).  From the card's states
+# at 50-86 the CPU's steps equal the card's to round-off (ROADMAP.md §3,
+# "Reference-side behaviour"), so the criterion stays unmet and its cold
+# solve runs for GALLERY_UNGATED_MAX_ITER iterations, printed, not
+# gated; 9a holds its step, card against CPU, from the card's state
 GALLERY_UNGATED = ('particle_in_tube',)
 GALLERY_UNGATED_MAX_ITER = 120
 JAX_GALLERY = {
@@ -416,6 +435,21 @@ JAX_GALLERY_F32 = {
 JAX_SWING_UP = dict(status=0, iterations=38, obj=15.64155366296566)
 JAX_SWING_UP_BATCH = dict(status=[0, 0, 0, 0], iterations=[44, 50, 46, 43])
 SWING_UP_OBJ_TOL = 1e-6
+# phase 10: SPIKE on the card (parallel/spike.py): 10a spike_solve of a
+# random system at the main path's blocks (d = 5, b = 4) and N = 65,536
+# on SPIKE_SLABS slabs against the card's scan solve of the same system
+# (relative difference within SPIKE_TOL), 10b spike_factor + spike_apply
+# against spike_solve, 10c the swing-up at N = 501 with kkt_method=
+# 'spike' on SPIKE_PATH_SLABS slabs against the scan solve of the same
+# queue row (the same status, iterations within SPIKE_ITER_SLACK, the
+# objective within SPIKE_OBJ_TOL relative)
+SPIKE_SLABS = 8
+SPIKE_NODES = 65536
+SPIKE_TOL = {'float64': 1e-10, 'float32': 1e-4}
+SPIKE_PATH_SLABS = 4
+SPIKE_ITER_SLACK = 2
+SPIKE_OBJ_TOL = 1e-6
+SPIKE_KERNELS = ('scan_factor_wide', 'scan_solve')
 
 
 def log(*args):
@@ -1184,9 +1218,7 @@ def ident_solve(counters, label, smi):
         prob.solve(guess)
         torch.cuda.synchronize()
     rec['in_solve_ms'] = {k: v for k, v in in_solve_times(
-        [e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA]).items()
-        if not k.startswith('launch ')}
+        device_events(prof)).items() if not k.startswith('launch ')}
     log('{}: device ms a call in the solve (profiler): {}'.format(
         label, json.dumps({k: round(v, 5)
                            for k, v in rec['in_solve_ms'].items()})))
@@ -1517,27 +1549,39 @@ def empty_kernel_ms(bk):
     return dict(ms=ms, call_ms=call_ms, host_ms=host_ms)
 
 
-def reference_solve(kkt_method, counters):
-    """N = 101 swing-up, float64 factorization: the card (kernels)
-    against the CPU (plain versions).  Returns the card solve's launch
-    counts (``counters``: the kernel modules)."""
+def reference_setup(dev, kkt_method):
+    """Phase 4's problem (N = 101 swing-up, torque bound 20, float64
+    factorization, monotone mu, no second-order correction) on ``dev``
+    and its start."""
     import torch
     from opty_tpu_torch.models import swing_up_problem
-    out = {}
-    for dev in ('cuda', 'cpu'):
-        prob = swing_up_problem(num_nodes=101, torque_bound=20.0,
-                                device=dev)
-        prob.set_solver_options(kkt_method=kkt_method,
-                                factor_dtype=torch.float64,
-                                mu_strategy='monotone', use_soc=False)
-        x0 = np.random.default_rng(29).normal(size=prob.num_free)
-        torch.cuda.synchronize()
-        reset_counts(*counters)
-        out[dev] = prob.solve(x0)
-        if dev == 'cuda':
-            torch.cuda.synchronize()
-            launches = launch_counts(*counters)
-    (xg, ig), (xc, ic) = out['cuda'], out['cpu']
+    prob = swing_up_problem(num_nodes=101, torque_bound=20.0, device=dev)
+    prob.set_solver_options(kkt_method=kkt_method,
+                            factor_dtype=torch.float64,
+                            mu_strategy='monotone', use_soc=False)
+    return prob, np.random.default_rng(29).normal(size=prob.num_free)
+
+
+def reference_solve(kkt_method, counters, child):
+    """N = 101 swing-up, float64 factorization: the card (kernels)
+    against the CPU (plain versions; the first line of ``child``, the
+    CPU reference process of ``kkt_method``, started at the beginning).
+    Returns the card solve's launch counts (``counters``: the kernel
+    modules)."""
+    import torch
+    prob, x0 = reference_setup('cuda', kkt_method)
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    xg, ig = prob.solve(x0)
+    torch.cuda.synchronize()
+    launches = launch_counts(*counters)
+    line = child.stdout.readline()
+    if not line:
+        child.wait(timeout=60)
+        fail('the CPU reference of phase 4 ({}) failed:\n{}'.format(
+            kkt_method, child.stderr.read()[-2000:]))
+    ic = json.loads(line)
+    xc = np.asarray(ic['x'])
     rel = abs(ig['obj_val'] - ic['obj_val']) / abs(ic['obj_val'])
     dx = float(np.max(np.abs(xg - xc)))
     log('reference N=101 {}: card status={} iters={} obj={:.10g}; cpu '
@@ -1680,9 +1724,9 @@ def rest_solve(dev, kkt_method, seed):
 
 
 def cpu_reference(kkt_method):
-    """``--cpu-reference METHOD``: phase 4c's CPU solves (the plain
-    versions), one JSON line each, in a child process; ``nlink``: phase
-    7a's solve on the CPU (NLINK_CPU records it)."""
+    """``--cpu-reference METHOD``: phase 4's and then phase 4c's CPU
+    solves (the plain versions), one JSON line each, in a child process;
+    ``nlink``: phase 7a's solve on the CPU (NLINK_CPU records it)."""
     import torch
     sys.path.insert(0, HERE)
     if kkt_method == 'nlink':
@@ -1692,6 +1736,11 @@ def cpu_reference(kkt_method):
               flush=True)
         return
     torch.set_num_threads(1)
+    prob, x0 = reference_setup('cpu', kkt_method)
+    x, info = prob.solve(x0)
+    print(json.dumps(dict(x=x.tolist(), status=info['status'],
+                          iterations=info['iterations'],
+                          obj_val=info['obj_val'])), flush=True)
     for seed in REST_SEEDS:
         print(json.dumps(dict(seed=seed, **rest_solve('cpu', kkt_method,
                                                       seed))), flush=True)
@@ -1726,8 +1775,9 @@ def nlink_solve(prob, guess, factor_dtype, kkt_method='cr',
 
 
 def start_cpu_references(methods):
-    """The CPU sides of phase 4c, one child process per KKT method,
-    started before the card's phases so that they overlap them."""
+    """The CPU sides of phases 4 and 4c, one child process per KKT
+    method, started before the card's phases so that they overlap
+    them."""
     children = {}
     for method in methods:
         children[method] = subprocess.Popen(
@@ -1770,7 +1820,10 @@ def restoration_phase(counters, kkt_method, child, required):
         steps.restoration_solve = solve_visit
     torch.cuda.synchronize()
     launches = launch_counts(*counters)
-    out, err = child.communicate(timeout=900)
+    # the rest of the child's lines (phase 4 read its first)
+    out = child.stdout.read()
+    err = child.stderr.read()
+    child.wait(timeout=900)
     if child.returncode != 0:
         fail('the CPU reference of phase 4c ({}) failed:\n{}'.format(
             kkt_method, err[-2000:]))
@@ -1848,8 +1901,7 @@ def iteration_profile(counters, label, lanes, iters, options, setup=None):
         prob.solve_batch(free)
         torch.cuda.synchronize()
     wall = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         fail('profile {}: the profiler recorded no device time'.format(label))
@@ -1947,6 +1999,31 @@ WIDE_KERNELS = ('pcr_factor_levels_wide', 'pcr_downsweep_wide',
 WIDE_SCAN_KERNELS = ('scan_factor_wide', 'scan_solve_wide')
 PCR_KERNELS = ('pcr_factor_levels', 'pcr_downsweep',
                'pcr_factor_levels_wide', 'pcr_downsweep_wide')
+
+
+class DeviceEvent(NamedTuple):
+    """A device function's time in a torch.profiler run, as an entry of
+    ``key_averages()`` gives it (the fields the phases read)."""
+    key: str                        # the demangled kernel name
+    count: int                      # launches
+    self_device_time_total: float   # microseconds in all
+
+
+def device_events(prof):
+    """The device's events of a finished torch.profiler run summed by
+    name, read from the raw trace: ``key_averages()`` builds every event
+    of the host's too and took 30-42 s on a two-iteration nlink-9 profile
+    of 8 lanes (H100 80GB HBM3, 700.00 W; the same sums)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    total, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            name = e.name()
+            total[name] = total.get(name, 0.0) + e.duration_ns() / 1e3
+            count[name] = count.get(name, 0) + 1
+    demangle = lambda n: torch._C._demangle(n) if len(n) > 1 else n
+    return [DeviceEvent(demangle(n), count[n], total[n]) for n in total]
 
 
 def in_solve_times(events):
@@ -2263,9 +2340,8 @@ def sweep_in_solve(prob, guess, iters=1):
         torch.cuda.synchronize()
     prob.set_solver_options(max_iter=NLINK_OPTIONS['max_iter'])
     calls, total = 0, 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and 'pcr_wide_downsweep<' in e.key:
+    for e in device_events(prof):
+        if 'pcr_wide_downsweep<' in e.key:
             calls += e.count
             total += e.self_device_time_total
     if not calls:
@@ -3006,6 +3082,280 @@ def gallery_phases(counters, smi, cpu):
         for kname, _, _, _ in KERNELS}
 
 
+def kkt_residual(D, E, F, Kbb, r, rb, u, beta):
+    """||K [u; beta] - [r; rb]|| / ||[r; rb]|| of a bordered block-
+    tridiagonal system (D, E (..., N, d, d), F (..., N, d, b)), in
+    float64."""
+    import torch
+    D, E, F, Kbb, r, rb, u, beta = (a.double() for a in (
+        D, E, F, Kbb, r, rb, u, beta))
+    mv = lambda A, x: (A @ x[..., None])[..., 0]
+    Ku = mv(D, u) + mv(F, beta[..., None, :].expand(u.shape[:-1]
+                                                     + beta.shape[-1:]))
+    Ku[..., 1:, :] += mv(E[..., 1:, :, :], u[..., :-1, :])
+    Ku[..., :-1, :] += mv(E[..., 1:, :, :].transpose(-1, -2), u[..., 1:, :])
+    Kb = torch.einsum('...kdb,...kd->...b', F, u) + mv(Kbb, beta)
+    num = torch.sqrt(torch.sum((Ku - r) ** 2) + torch.sum((Kb - rb) ** 2))
+    return (num / torch.sqrt(torch.sum(r ** 2) + torch.sum(rb ** 2))).item()
+
+
+def spike_local_factor_check(sk, sp, smi):
+    """The spike path's local factorization on the card at 10c's slabs
+    (SPIKE_PATH_SLABS lanes of ceil(501 / P) nodes, d = 5, the 2 d + b =
+    14 spike columns as the border): scan_factor's S_inv and Melim
+    against the plain ``_local_factor`` and the solved columns against
+    the plain ``_local_solve``, float64 and float32, within TOL_WIDE
+    (the wide kernel takes a border of 14) and TOL_SCAN for scan_solve's
+    one right-hand side (csrc/scan.cu, b = 0); both kernels and their
+    plain versions timed there, beside their bounds.  Returns records."""
+    import torch
+    L = -(-NODES // SPIKE_PATH_SLABS)
+    cols = 2 * D + B_BORDER
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split('.')[-1]
+        Dm, E, R, _, r, _ = scan_system(dtype, SPIKE_PATH_SLABS, L, b=cols,
+                                        seed=12)
+        S_inv, Melim, X = sp._factor_with_columns(Dm, E, R)
+        S_p, M_p = sp._local_factor(Dm, E)
+        X_p = sp._local_solve(S_p, M_p, E, R)
+        y = sp._solve_one(S_inv, Melim, E, r)
+        no_border = (S_inv.new_zeros(S_inv.shape[:-1] + (0,)), E,
+                     S_inv.new_zeros(S_inv.shape[:-3] + (0, 0)), r,
+                     S_inv.new_zeros(S_inv.shape[:-3] + (0,)))
+        y_p = sk.scan_solve_plain(S_inv, Melim, *no_border)[0]
+        K0 = Dm.new_zeros(Dm.shape[:-3] + (cols, cols))
+        times = dict(
+            factor_ms=timed(lambda: sk.scan_factor(Dm, E, R, K0), 20),
+            factor_plain_ms=timed(
+                lambda: sk.scan_factor_plain(Dm, E, R, K0), 1, 1),
+            solve_ms=timed(lambda: sp._solve_one(S_inv, Melim, E, r), 20),
+            solve_plain_ms=timed(
+                lambda: sk.scan_solve_plain(S_inv, Melim, *no_border), 1, 1))
+        counts = (scan_counts(D, cols, L, SPIKE_PATH_SLABS,
+                              Dm.element_size())[0],
+                  scan_counts(D, 0, L, SPIKE_PATH_SLABS,
+                              Dm.element_size())[1])
+        for key, (nbytes, ops) in zip(('factor', 'solve'), counts):
+            times[key + '_bound_ms'], times[key + '_bound_by'] = bound(
+                nbytes, ops, torch.cuda.get_device_name(0), tag)
+        errs = {'S_inv': rel_err(S_inv, S_p)[1],
+                'Melim': rel_err(Melim, M_p)[1], 'X': rel_err(X, X_p)[1],
+                'scan_solve': rel_err(y, y_p)[1]}
+        limits = {k: TOL_SCAN[tag] if k == 'scan_solve' else TOL_WIDE[tag]
+                  for k in errs}
+        log('10 local factor {} (P={}, L={}, d={}, {} spike columns): '
+            'kernel against plain, max rel err {} (limits {}); device ms '
+            '(kernel, plain, bound) scan_factor {:.4f}, {:.1f}, {:.5f} ({}), '
+            'scan_solve {:.4f}, {:.1f}, {:.5f} ({}) ({})'.format(
+                tag, SPIKE_PATH_SLABS, L, D, cols, json.dumps(
+                    {k: float('{:.3e}'.format(v)) for k, v in errs.items()}),
+                json.dumps(limits), times['factor_ms'],
+                times['factor_plain_ms'], times['factor_bound_ms'],
+                times['factor_bound_by'], times['solve_ms'],
+                times['solve_plain_ms'], times['solve_bound_ms'],
+                times['solve_bound_by'], smi))
+        if not all(errs[k] <= limits[k] for k in errs):
+            fail('10 local factor {}: the kernels disagree with the plain '
+                 'versions: {}'.format(tag, json.dumps(errs)))
+        out.append(dict(dtype=tag, slabs=SPIKE_PATH_SLABS, nodes=L,
+                        columns=cols, **errs, **times))
+    return out
+
+
+def spike_system_solve(counters, sk, sp, mesh, dtype, smi):
+    """10a and 10b in ``dtype`` on one lane of scan_system's kind made
+    symmetric (D and Kbb: the scan solve, like any KKT solve here, takes
+    the upper blocks as E^T and the border rows as F^T and its pivots as
+    symmetric): returns a record."""
+    import torch
+    tag = str(dtype).split('.')[-1]
+    Dm, E, F, Kbb, r, rb = scan_system(dtype, 1, SPIKE_NODES, seed=11)
+    Dm = 0.5 * (Dm + Dm.transpose(-1, -2))
+    Kbb = 0.5 * (Kbb + Kbb.transpose(-1, -2))
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.time()
+    u, beta = sp.spike_solve(Dm, E, F, Kbb, r, rb, mesh)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for k, v in launch_counts(*counters).items() if v}
+    fac = sk.scan_factor(Dm, E, F, Kbb)
+    u_ref, b_ref = sk.scan_solve(*fac[:3], E, fac[3], r, rb)
+    diff = max(rel_err(u, u_ref)[1], rel_err(beta, b_ref)[1])
+    res = kkt_residual(Dm, E, F, Kbb, r, rb, u, beta)
+    res_ref = kkt_residual(Dm, E, F, Kbb, r, rb, u_ref, b_ref)
+    # 10b: the factorization once, two right-hand sides
+    t1 = time.time()
+    sfac = sp.spike_factor(Dm, E, F, Kbb, mesh)
+    u_fa, b_fa = sp.spike_apply(sfac, r, rb, mesh)
+    torch.cuda.synchronize()
+    fa_wall = time.time() - t1
+    r2, rb2 = torch.flip(r, (-2,)), -rb
+    u2, b2 = sp.spike_apply(sfac, r2, rb2, mesh)
+    u2_ref, b2_ref = sp.spike_solve(Dm, E, F, Kbb, r2, rb2, mesh)
+    fa_diff = max(rel_err(u_fa, u)[1], rel_err(b_fa, beta)[1],
+                  rel_err(u2, u2_ref)[1], rel_err(b2, b2_ref)[1])
+    # the local factorization's launch alone, at this system's slabs
+    axis = mesh.axis(Dm.device)
+    Ds = sp._slabs(axis, Dm, unit=True)
+    E_head, E_tail_T, Eint = sp._couplings(axis, sp._slabs(axis, E))
+    R = torch.cat([sp._slabs(axis, r[..., None])[..., 0][..., None],
+                   sp._spike_columns(E_head, E_tail_T, sp._slabs(axis, F),
+                                     Ds.shape[-3])], dim=-1)
+    K0 = Ds.new_zeros(Ds.shape[:-3] + (R.shape[-1],) * 2)
+    factor_ms = timed(lambda: sk.scan_factor(Ds, Eint, R, K0), 3, 1)
+    S_inv, Melim = sfac.S_inv, sfac.Melim
+    y0 = sp._slabs(axis, r[..., None])[..., 0]
+    solve_ms = timed(lambda: sp._solve_one(S_inv, Melim, sfac.Eint, y0), 3, 1)
+    L, cols = Ds.shape[-3], R.shape[-1]
+    counts = (scan_counts(D, cols, L, SPIKE_SLABS, Dm.element_size())[0],
+              scan_counts(D, 0, L, SPIKE_SLABS, Dm.element_size())[1])
+    (factor_bound, by_f), (solve_bound, by_s) = (
+        bound(nbytes, ops, torch.cuda.get_device_name(0), tag)
+        for nbytes, ops in counts)
+    rec = dict(dtype=tag, nodes=SPIKE_NODES, slabs=SPIKE_SLABS, d=D,
+               b=B_BORDER, rel_to_scan=diff, residual=res,
+               scan_residual=res_ref, factor_apply_rel=fa_diff,
+               solve_wall_s=wall, factor_apply_wall_s=fa_wall,
+               launches=launches, scan_factor_ms=factor_ms,
+               scan_factor_bound_ms=factor_bound, scan_factor_bound_by=by_f,
+               scan_solve_ms=solve_ms, scan_solve_bound_ms=solve_bound,
+               scan_solve_bound_by=by_s, lanes=SPIKE_SLABS, slab_nodes=L,
+               columns=cols)
+    log('10a spike_solve {} N={} P={} (d={}, b={}): relative difference '
+        'to the card\'s scan solve {:.3e} (limit {:.0e}), relative '
+        'residual {:.3e} (scan {:.3e}), wall {:.3f} s, launches {}; its '
+        'scan_factor launch at the slabs ({} lanes of {} nodes, {} '
+        'columns) {:.3f} ms (bound {:.5f} ms, {}), scan_solve {:.3f} ms '
+        '(bound {:.5f} ms, {}) of device time ({}; in the full run the '
+        'card is shared with phases 7c-7b)'.format(
+            tag, SPIKE_NODES, SPIKE_SLABS, D, B_BORDER, diff, SPIKE_TOL[tag],
+            res, res_ref, wall, json.dumps(launches), SPIKE_SLABS, L, cols,
+            factor_ms, factor_bound, by_f, solve_ms, solve_bound, by_s,
+            smi))
+    log('10b spike_factor + spike_apply {}: against spike_solve (two '
+        'right-hand sides) {:.3e} (limit {:.0e}), factor and apply wall '
+        '{:.3f} s'.format(tag, fa_diff, SPIKE_TOL[tag], fa_wall))
+    if not diff <= SPIKE_TOL[tag]:
+        fail('10a spike_solve {}: {:.3e} from the scan solve'.format(
+            tag, diff))
+    if not fa_diff <= SPIKE_TOL[tag]:
+        fail('10b spike_factor + spike_apply {}: {:.3e} from spike_solve'
+             .format(tag, fa_diff))
+    for kname in SPIKE_KERNELS[:1]:
+        if not launches.get(kname):
+            fail('10a: {} was not launched'.format(kname))
+    return rec
+
+
+def spike_path(counters, mesh, smi):
+    """10c: bench.py's queue row 0 (default_rng(7), N = 501) solved on the
+    card with kkt_method='scan' and then 'spike' on SPIKE_PATH_SLABS
+    slabs, a float64 factorization, monotone mu, no second-order
+    correction; counters reset just before the spike solve and read just
+    after.  Returns a record."""
+    import torch
+    from opty_tpu_torch.models import swing_up_problem
+    prob = swing_up_problem(num_nodes=NODES)
+    free = np.random.default_rng(7).standard_normal((64, prob.num_free))[0]
+    runs = {}
+    for method in ('scan', 'spike'):
+        prob.set_solver_options(
+            kkt_method=method, factor_dtype=torch.float64, use_soc=False,
+            mu_strategy='monotone', max_iter=200,
+            mesh=mesh if method == 'spike' else None)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.time()
+        x, info = prob.solve(free)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: v for k, v in launch_counts(*counters).items() if v}
+        if x.shape != (prob.num_free,) or not np.all(np.isfinite(x)):
+            fail('10c {}: the solution has the wrong shape or is not finite'
+                 .format(method))
+        runs[method] = dict(status=info['status'],
+                            iterations=info['iterations'],
+                            obj=info['obj_val'], wall_s=wall,
+                            launches=launches)
+        log('10c swing-up N={} row 0, kkt_method={!r}{}: status={} '
+            'iterations={} obj={!r} wall_s={:.2f} ({:.1f} ms an iteration), '
+            'launches {} ({})'.format(
+                NODES, method, ' P={}'.format(SPIKE_PATH_SLABS)
+                if method == 'spike' else '', info['status'],
+                info['iterations'], info['obj_val'], wall,
+                wall / max(info['iterations'], 1) * 1e3,
+                json.dumps(launches), smi))
+    sp_, sc = runs['spike'], runs['scan']
+    rel = abs(sp_['obj'] - sc['obj']) / max(abs(sc['obj']), 1e-300)
+    if sp_['status'] != sc['status'] \
+            or abs(sp_['iterations'] - sc['iterations']) > SPIKE_ITER_SLACK \
+            or not rel <= SPIKE_OBJ_TOL:
+        fail('10c: the spike solve (status {}, {} iterations) parts from the '
+             'scan solve (status {}, {} iterations), objective {:.3e} '
+             'relative'.format(sp_['status'], sp_['iterations'],
+                               sc['status'], sc['iterations'], rel))
+    for kname in SPIKE_KERNELS:
+        if not sp_['launches'].get(kname):
+            fail('10c: {} was not launched by the spike solve'.format(kname))
+    for kname in PCR_KERNELS:
+        if sp_['launches'].get(kname):
+            fail('10c: {} was launched by the spike solve'.format(kname))
+    return dict(runs, obj_rel=rel)
+
+
+def spike_phase(counters, smi):
+    """Phase 10 (10a-10c, and the local factor's kernels against their
+    plain versions at 10c's slabs).  Returns {kernel: {'launches_spike':
+    ...}} for the kernels' JSON record and the phase's records."""
+    import torch
+    from opty_tpu_torch.ops import scan_kernels as sk
+    from opty_tpu_torch.parallel import spike as sp
+    from opty_tpu_torch.parallel.mesh import NodeMesh
+    local = spike_local_factor_check(sk, sp, smi)
+    mesh = NodeMesh(SPIKE_SLABS)
+    solves = [spike_system_solve(counters, sk, sp, mesh, dtype, smi)
+              for dtype in (torch.float64, torch.float32)]
+    path = spike_path(counters, NodeMesh(SPIKE_PATH_SLABS), smi)
+    kernels = {kname: dict(launches_spike=dict(
+        swing_up=path['spike']['launches'].get(kname, 0),
+        swing_up_iterations=path['spike']['iterations'],
+        solve_float64=solves[0]['launches'].get(kname, 0)))
+        for kname, _, _, _ in KERNELS}
+    # the spike's launches at 10c's slabs (the plain versions beside) and
+    # at 10a's (the plain factor there takes ~20 s a call: not timed)
+    for kname, key in (('scan_factor_wide', 'factor'),
+                       ('scan_solve', 'solve')):
+        kernels[kname]['spike_shape'] = [dict(
+            dtype=r['dtype'], lanes=r['slabs'], nodes=r['nodes'], d=D,
+            b=r['columns'] if key == 'factor' else 0, ms=r[key + '_ms'],
+            plain_ms=r[key + '_plain_ms'], bound_ms=r[key + '_bound_ms'],
+            bound_by=r[key + '_bound_by']) for r in local] + [dict(
+                dtype=r['dtype'], lanes=r['lanes'], nodes=r['slab_nodes'],
+                d=D, b=r['columns'] if key == 'factor' else 0,
+                ms=r['scan_' + key + '_ms'], plain_ms=None,
+                bound_ms=r['scan_' + key + '_bound_ms'],
+                bound_by=r['scan_' + key + '_bound_by']) for r in solves]
+    return kernels, dict(local_factor=local, solves=solves, path=path)
+
+
+def spike_alone():
+    """``--spike-phase``: phase 10 alone (the kernels built first), its
+    records printed as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail('no CUDA device: chip_smoke.py runs on the card only')
+    sys.path.insert(0, HERE)
+    from opty_tpu_torch.ops import block_kernels as bk
+    from opty_tpu_torch.ops import pcr_kernels as pk
+    from opty_tpu_torch.ops import scan_kernels as sk
+    smi = device_line()
+    pk.build_kernels()
+    _, recs = phase('10 spike', spike_phase, (pk, bk, sk), smi)
+    print(json.dumps(recs), flush=True)
+
+
 def gallery_process(out_path, fds=()):
     """``--gallery-process OUT [W R]``: phases 9a-9c in a process of
     their own on the same card, their records written to OUT as JSON.
@@ -3036,6 +3386,9 @@ def gallery_process(out_path, fds=()):
         out = gallery_phases((pk, bk, sk), smi, cpu)
     finally:
         stop_children(children)
+    spike, _ = phase('10 spike', spike_phase, (pk, bk, sk), smi)
+    for kname, rec in spike.items():
+        out[kname].update(rec)
     with open(out_path, 'w') as f:
         json.dump(out, f)
 
@@ -3068,8 +3421,8 @@ def finish_gallery_process(started, server):
         f.seek(0)
     out, err = logs[0].read(), logs[1].read()
     log(out.rstrip())
-    log('phase 9 gallery (a second process on the card, beside 7d, 7f, 7c '
-        'and 7b): {:.1f} s, {:.1f} s of it after 7b'.format(
+    log('phases 9 gallery and 10 spike (a second process on the card, '
+        'beside 7d, 7f, 7c and 7b): {:.1f} s, {:.1f} s of it after 7b'.format(
             time.time() - t0, time.time() - t1))
     if rc != 0:
         server.log_file.seek(0)
@@ -3201,6 +3554,9 @@ def main():
     if sys.argv[1:2] == ['--step-server']:
         step_server(sys.argv[2:])
         return
+    if sys.argv[1:2] == ['--spike-phase']:
+        spike_alone()
+        return
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device: chip_smoke.py runs on the card only')
@@ -3277,8 +3633,10 @@ def run(torch, counters, pk, bk, sk, children):
                        GALLERY_SHAPES, '3w (gallery shapes)')
 
     # 4. small reference solves, card against CPU
-    phase('4 reference cr', reference_solve, 'cr', counters)
-    ref = phase('4b reference scan', reference_solve, 'scan', counters)
+    phase('4 reference cr', reference_solve, 'cr', counters,
+          children['cr'])
+    ref = phase('4b reference scan', reference_solve, 'scan', counters,
+                children['scan'])
     if not (ref['scan_factor'] and ref['scan_solve']) \
             or ref['block_inv'] or ref['block_matmul']:
         fail('the N = 101 scan solve on the card did not run through the '

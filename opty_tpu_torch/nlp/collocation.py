@@ -1,7 +1,8 @@
 """Wires a ConstraintCollocator into the interior-point solver.
 
 The counterpart of opty_tpu/nlp/collocation.py for ``kkt_method``
-``'scan'`` and ``'cr'``.  Builds the ``IPMFunctions`` over a leading
+``'scan'``, ``'cr'`` and ``'spike'`` (the node axis split over the slabs
+of a mesh, parallel/spike.py).  Builds the ``IPMFunctions`` over a leading
 lane axis B: the transcription (one free vector at a time, either
 integration method, with the unknown parameters and a variable node
 interval as border variables w) is vmapped over the lanes with
@@ -40,11 +41,12 @@ import torch
 from torch.func import jvp, vjp, vmap
 
 from ..config import default_factor_dtype, default_kkt_method
+from ..parallel.spike import spike_apply, spike_factor
 from ..transcribe.hessian import make_structured_scalar_hessian
 from .ipm_types import IPMFunctions
-from .kkt import (KKTBlocks, check_method, factor_kkt, factor_kkt_cr,
-                  kkt_matvec, matvec_assembled_nl, solve_factored,
-                  solve_factored_cr_nl)
+from .kkt import (KKTBlocks, _assemble_node_blocks, _equilibrate,
+                  check_method, factor_kkt, factor_kkt_cr, kkt_matvec,
+                  matvec_assembled_nl, solve_factored, solve_factored_cr_nl)
 
 __all__ = ['make_collocation_nlp_functions', 'compute_scaling']
 
@@ -145,7 +147,8 @@ def compute_scaling(col, gradient, x0):
 
 def make_collocation_nlp_functions(col, objective, gradient=None,
                                    factor_dtype=None, refine_steps=None,
-                                   scale_from=None, kkt_method=None):
+                                   scale_from=None, kkt_method=None,
+                                   mesh=None, node_axis='node'):
     """IPMFunctions over B lanes for a collocation problem.
 
     Parameters
@@ -158,8 +161,12 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         scaling, one per lane.  When given, the returned functions
         define the *scaled* NLP; the second return value carries
         (sf (B,), dsc_full (B, m)) for unscaling results.
-    kkt_method : 'scan' (sequential block elimination, the CPU default)
-        or 'cr' (parallel cyclic reduction, the card's default).
+    kkt_method : 'scan' (sequential block elimination, the CPU default),
+        'cr' (parallel cyclic reduction, the card's default) or 'spike'
+        (the factorization split over the node slabs of ``mesh``,
+        parallel/spike.py); 'spike' requires ``mesh``.
+    mesh : parallel.mesh.NodeMesh with a ``node_axis`` axis ('spike'
+        only).
     """
     n = col.num_states
     q = col.num_unknown_input_trajectories
@@ -177,6 +184,9 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
     check_method(kkt_method)
     if factor_dtype is None:
         factor_dtype = default_factor_dtype(device)
+    if kkt_method == 'spike' and mesh is None:
+        raise ValueError("kkt_method='spike' requires a mesh with a '%s' "
+                         'axis' % node_axis)
     if refine_steps is None:
         # a mixed-precision factorization needs more refinement rounds
         # (the JAX package measured 6 to recover float64-factorization
@@ -307,6 +317,21 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         return (join_free(u[..., :nz], beta[..., :bw]),
                 join_con(u[:, 1:, nz:], beta[..., bw:]))
 
+    def _factor_spike(blocks):
+        """The SPIKE factorization over the mesh's node slabs, with the
+        JAX package's equilibration (in the working precision) and then
+        the cast to ``factor_dtype``."""
+        D, E, F, Kbb, sn, sb = _equilibrate(*_assemble_node_blocks(blocks))
+        D, E, F, Kbb = (a.to(factor_dtype) for a in (D, E, F, Kbb))
+        return spike_factor(D, E, F, Kbb, mesh, node_axis), sn, sb
+
+    def _spike_solve_one(facsc, rn, rb):
+        fac, sn, sb = facsc
+        fd = fac.S_inv.dtype
+        u, beta = spike_apply(fac, (rn * sn).to(fd), (rb * sb).to(fd), mesh,
+                              node_axis)
+        return u * sn, beta * sb
+
     def kkt_factor(prep, sigma_x, ds, gn_mask=None):
         """Factor the KKT matrix once for a given regularization; the
         (blocks, factorization) pair serves ``kkt_apply`` for any rhs.
@@ -329,6 +354,8 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
         Hd = Hd + torch.diag_embed(sz)
         Hww = Hww + torch.diag_embed(sw)
         blocks = _blocks_with(Hd, Ho, Hw, Hww, prep, ds)
+        if kkt_method == 'spike':
+            return blocks, _factor_spike(blocks)
         factor = factor_kkt_cr if kkt_method == 'cr' else factor_kkt
         return blocks, factor(blocks, factor_dtype=factor_dtype)
 
@@ -352,6 +379,9 @@ def make_collocation_nlp_functions(col, objective, gradient=None,
             r_nodes = r_nodes.transpose(-1, -2)
             solve = lambda rn, rb: solve_factored_cr_nl(fac, rn, rb)
             apply = lambda u, beta: matvec_assembled_nl(fac, u, beta)
+        elif kkt_method == 'spike':
+            solve = lambda rn, rb: _spike_solve_one(fac, rn, rb)
+            apply = lambda u, beta: kkt_matvec(blocks, u, beta)
         else:
             solve = lambda rn, rb: solve_factored(fac, rn, rb)
             apply = lambda u, beta: kkt_matvec(blocks, u, beta)

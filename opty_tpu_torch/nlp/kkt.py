@@ -20,9 +20,9 @@ block-tridiagonal with a small dense border (unknown parameters, free
 
 Both equilibrate (Jacobi scaling) and cast to the factorization dtype.
 Every function takes a leading lane axis (any leading axes broadcast):
-the solver carries B lanes explicitly instead of vmapping.  The
-distributed ``'spike'`` method is not ported yet (ROADMAP queue 1 item
-15).
+the solver carries B lanes explicitly instead of vmapping.  The third
+method, ``'spike'``, splits the node axis over a mesh
+(parallel/spike.py; nlp/collocation.py wires it in).
 """
 
 from typing import Any, NamedTuple
@@ -37,18 +37,14 @@ __all__ = ['KKTBlocks', 'KKTFactorization', 'CRFactorization', 'METHODS',
            'factor_kkt_cr', 'matvec_assembled_nl', 'solve_factored_cr_nl',
            'solve_structured_kkt']
 
-METHODS = ('scan', 'cr')
+METHODS = ('scan', 'cr', 'spike')
 
 
 def check_method(method):
-    """Raise for a KKT method the port does not provide."""
-    if method == 'spike':
-        raise NotImplementedError(
-            "kkt_method='spike' is not ported to opty_tpu_torch yet "
-            "(ROADMAP queue 1 item 15: multi-GPU); use 'scan' or 'cr'.")
+    """Raise for an unknown KKT method."""
     if method not in METHODS:
         raise ValueError("kkt_method must be one of {}, not {!r}".format(
-            METHODS + ('spike',), method))
+            METHODS, method))
 
 
 class KKTBlocks(NamedTuple):
@@ -367,8 +363,12 @@ def solve_structured_kkt(blocks: KKTBlocks, r_nodes, r_border,
     The factorization runs once in ``factor_dtype``; ``refine_steps``
     rounds of iterative refinement with the full-precision operator
     recover accuracy.  ``method``: 'scan' (sequential block LU, lowest
-    flops) or 'cr' (cyclic reduction, log depth)."""
+    flops) or 'cr' (cyclic reduction, log depth); 'spike' needs a mesh
+    (parallel.spike.solve_structured_kkt_sharded)."""
     check_method(method)
+    if method == 'spike':
+        raise ValueError("method='spike' splits the node axis over a mesh: "
+                         'use parallel.spike.solve_structured_kkt_sharded')
     work_dtype = blocks.Hd.dtype
     if method == 'cr':
         cf = factor_kkt_cr(blocks, factor_dtype=factor_dtype)

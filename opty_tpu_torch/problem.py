@@ -55,7 +55,7 @@ class Problem:
                  known_parameter_map={}, known_trajectory_map={},
                  instance_constraints=None, time_symbol=None,
                  integration_method='backward euler', bounds=None,
-                 eom_bounds=None, dtype=None, device=None):
+                 eom_bounds=None, dtype=None, device=None, mesh=None):
         if not equations_of_motion.has(sm.Derivative):
             raise ValueError('No time derivatives are present.'
                              ' The equations of motion must be ordinary '
@@ -95,6 +95,8 @@ class Problem:
         self._kkt_method = None
         self._refine_steps = None
         self._chunk_iters = None
+        # the node mesh of kkt_method='spike' (parallel/mesh.py)
+        self._mesh = mesh
         self.obj_value = []
 
     # ------------------------------------------------------------------
@@ -217,13 +219,17 @@ class Problem:
         ``factor_dtype`` selects the KKT factorization precision
         (float32 + refinement on the card, float64 on the CPU by
         default); ``kkt_method`` is 'scan' or 'cr' (default: 'cr' on
-        the card, 'scan' on the CPU); ``refine_steps`` and
-        ``chunk_iters`` are accepted as in opty_tpu."""
+        the card, 'scan' on the CPU) or 'spike' (the factorization
+        split over the slabs of ``mesh``, a parallel.mesh.NodeMesh);
+        ``mesh``, ``refine_steps`` and ``chunk_iters`` are accepted as
+        in opty_tpu."""
         if factor_dtype is not None:
             self._factor_dtype = _torch_dtype(factor_dtype)
         if kkt_method is not None:
             check_method(kkt_method)
             self._kkt_method = kkt_method
+        if 'mesh' in kwargs:
+            self._mesh = kwargs.pop('mesh')
         if 'refine_steps' in kwargs:
             self._refine_steps = kwargs.pop('refine_steps')
         if 'chunk_iters' in kwargs:
@@ -290,7 +296,7 @@ class Problem:
                 col, obj_fn, grad_fn, scale_from=free,
                 factor_dtype=self._factor_dtype,
                 refine_steps=self._refine_steps,
-                kkt_method=self._kkt_method)
+                kkt_method=self._kkt_method, mesh=self._mesh)
             warm = kw.pop('warm', None)
             if warm is not None:
                 y0, zl0, zu0 = warm
@@ -334,10 +340,13 @@ class Problem:
         res, state = self._drain(run_resume, x, res, state)
         return self._package_result(res)
 
-    def solve_batch(self, free_batch):
+    def solve_batch(self, free_batch, devices=None):
         """Solve a batch of instances, one lane each: rows of
         ``free_batch`` are independent initial guesses.  Returns the
-        IPMResult with a leading batch axis (tensors on the device)."""
+        IPMResult with a leading batch axis (tensors on the device).
+        ``devices`` is accepted and not read, as in opty_tpu (whose
+        solve_batch takes it and never reads it); a batch split over
+        devices is parallel.solve_batch_sharded's."""
         _, run_cold, run_resume = self._build_solver()
         free_batch = self._as_tensor(free_batch)
         res, state = run_cold(free_batch)

@@ -152,6 +152,29 @@ def test_solve_structured_kkt_random_blocks():
 
 
 def test_unported_methods_raise(setup):
-    _, tc, _, _, to, tg, _ = setup
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """kkt_method='spike' without a mesh raises the JAX package's
+    ValueError (opty_tpu/nlp/collocation.py) in both packages; with a
+    node mesh of 4 slabs the port's spike factor and refined apply match
+    the JAX package's scan solve, lane by lane."""
+    from opty_tpu_torch.parallel.mesh import NodeMesh
+    jc, tc, jo, jg, to, tg, data = setup
+    with pytest.raises(ValueError, match="'spike' requires a mesh"):
         torch_functions(tc, to, tg, kkt_method='spike')
+    with pytest.raises(ValueError, match="'spike' requires a mesh"):
+        jax_functions(jc, jo, jg, kkt_method='spike')
+    T = lambda k: torch.as_tensor(data[k])
+    fns, _ = torch_functions(tc, to, tg, factor_dtype=torch.float64,
+                             scale_from=T('x0'), kkt_method='spike',
+                             mesh=NodeMesh(4))
+    fac = fns.kkt_factor(fns.kkt_prepare(T('x'), T('y')), T('sigma'),
+                         T('ds'))
+    dx, dy, resid = fns.kkt_apply(fac, T('rx'), T('rc'))
+    for lane in range(LANES):
+        J = lambda k: jnp.asarray(data[k][lane])
+        jfns, _ = jax_functions(jc, jo, jg, factor_dtype=jnp.float64,
+                                scale_from=J('x0'), kkt_method='scan')
+        jfac = jfns.kkt_factor(jfns.kkt_prepare(J('x'), J('y')),
+                               J('sigma'), J('ds'))
+        jdx, jdy, _ = jfns.kkt_apply(jfac, J('rx'), J('rc'))
+        assert _rel(dx[lane], jdx) <= 1e-10
+        assert _rel(dy[lane], jdy) <= 1e-10

@@ -1,6 +1,7 @@
 """Package rules of opty_tpu_torch: no JAX and nothing of opty_tpu in
 its import graph, the card by default, the JAX package's default solver
-options accepted, and loud refusals of what is not ported yet."""
+options accepted, and its refusals (kkt_method='spike' without a
+mesh)."""
 
 import pkgutil
 import subprocess
@@ -69,16 +70,17 @@ def test_default_options_run_and_spike_raises():
     """No solver option set: adaptive mu, the second-order correction
     and restoration run through solve, solve_batch and solve_queue on
     the CPU; the Ipopt-name options of add_option map onto IPMOptions;
-    the node-sharded 'spike' KKT method is still refused."""
+    the node-split 'spike' KKT method raises the JAX package's ValueError
+    without a mesh (opty_tpu/nlp/collocation.py) and solves with one."""
+    from opty_tpu_torch.parallel.mesh import NodeMesh
     prob = swing_up_problem(num_nodes=11, torque_bound=20.0, device='cpu')
     opt = prob._ipm_options
     assert opt.mu_strategy == 'adaptive' and opt.use_soc
     assert opt.max_rest_visit > 0
     prob.set_solver_options(mu_strategy='adaptive', use_soc=True)
-    with pytest.raises(NotImplementedError, match="'spike'.*item 15"):
-        prob.set_solver_options(kkt_method='spike')
     rng = np.random.default_rng(1)
-    x, info = prob.solve(rng.normal(size=prob.num_free))
+    x0 = rng.normal(size=prob.num_free)
+    x, info = prob.solve(x0)
     assert info['status'] == 0 and info['iterations'] > 0
     assert 'terminated successfully' in info['status_msg']
     assert set(info) >= {'rest_iterations', 'mono_fallback'}
@@ -89,6 +91,14 @@ def test_default_options_run_and_spike_raises():
     assert queue.status.shape == (3,)
     assert np.all(np.isin(np.asarray(batch.status), (0, 1)))
     assert np.all(np.isin(queue.status, (0, 1)))
+    prob.set_solver_options(kkt_method='spike')
+    with pytest.raises(ValueError, match="'spike' requires a mesh"):
+        prob.solve(x0)
+    prob.set_solver_options(mesh=NodeMesh(2))
+    _, info_spike = prob.solve(x0)
+    assert info_spike['status'] == 0
+    assert abs(info_spike['obj_val'] - info['obj_val']) \
+        <= 1e-6 * abs(info['obj_val'])
     prob.add_option('max_iter', 7)
     prob.add_option('tol', 1e-6)
     assert (prob._ipm_options.max_iter, prob._ipm_options.tol) == (7, 1e-6)
